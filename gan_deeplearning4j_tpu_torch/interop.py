@@ -1,0 +1,76 @@
+"""Weights carried across from the JAX package.
+
+``params_from_numpy(tree, device, graph=...)`` turns params given as nested
+dicts of host arrays, ``{layer: {name: array}}`` — what the JAX package's
+params become under ``np.asarray``, and what a checkpoint's ``arrays.npz``
+holds — into the port's tensors on ``device``. Both packages keep the same
+layouts (NHWC activations, HWIO conv kernels, ``(in, out)`` dense kernels),
+so this is a checked copy with no transposes: every layer and param name,
+shape and dtype is checked against the port's graph, and a missing or
+extra key raises.
+
+Leaves may be numpy arrays (including ``ml_dtypes`` bfloat16 arrays, as
+``np.asarray`` gives them for a bf16 JAX array) or CPU tensors (the
+serializer decodes bf16 members straight into tensors: numpy has no
+bfloat16 of its own).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from gan_deeplearning4j_tpu_torch.runtime.device import DeviceLike, resolve_device
+
+#: the storage dtypes the reference writes params in
+_STORAGE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def leaf_to_tensor(value) -> torch.Tensor:
+    """One host leaf as a CPU tensor that owns its memory. A bfloat16 numpy
+    array (``ml_dtypes``) travels by its 16-bit pattern."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu()
+    arr = np.asarray(value)
+    if arr.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(arr).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True))
+
+
+def params_from_numpy(tree: Dict, device: DeviceLike, *, graph) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Checked copy of a ``{layer: {name: array}}`` tree onto ``device``
+    (``None`` = the card). Raises ``KeyError`` on a missing or extra layer
+    or param and ``ValueError`` on a shape or dtype the graph does not
+    take."""
+    dev = resolve_device(device)
+    want = graph.param_shapes()
+    missing = sorted(set(want) - set(tree))
+    extra = sorted(set(tree) - set(want))
+    if missing or extra:
+        raise KeyError(f"param layers do not match the graph: missing {missing}, extra {extra}")
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for layer, shapes in want.items():
+        leaves = tree[layer]
+        missing = sorted(set(shapes) - set(leaves))
+        extra = sorted(set(leaves) - set(shapes))
+        if missing or extra:
+            raise KeyError(
+                f"params of layer {layer!r} do not match the graph: missing {missing}, extra {extra}"
+            )
+        out[layer] = {}
+        for name, shape in shapes.items():
+            t = leaf_to_tensor(leaves[name])
+            if tuple(t.shape) != tuple(shape):
+                raise ValueError(
+                    f"{layer}/{name}: graph wants shape {tuple(shape)}, got {tuple(t.shape)}"
+                )
+            if t.dtype not in _STORAGE_DTYPES:
+                raise ValueError(
+                    f"{layer}/{name}: dtype {t.dtype} is not a storage dtype "
+                    f"({', '.join(str(d) for d in _STORAGE_DTYPES)})"
+                )
+            out[layer][name] = t.to(dev)
+    return out

@@ -1,0 +1,310 @@
+"""Layer configs of the PyTorch port — counterpart of
+``gan_deeplearning4j_tpu/nn/layers.py``, for the layers the serving path
+runs: Dense, Output, BatchNormalization, Convolution, Subsampling (max),
+Upsampling2D and Activation.
+
+Each layer is a frozen config dataclass with the same fields, and so the
+same ``to_dict`` schema, as its JAX counterpart:
+
+- ``param_shapes(in_type)``: ``{name: shape}``. Names match DL4J's
+  (``W``/``b``; BatchNorm ``gamma``/``beta``/``mean``/``var``) because the
+  reference's weight-sync protocol and the checkpoint format both address
+  params by ``(layer, name)``;
+- ``init(generator, in_type)``: a dict of CPU tensors drawn from an
+  explicit ``torch.Generator``;
+- ``apply(params, x, train=False) -> (y, state_updates)``: inference only
+  for now. ``train=True`` (BatchNorm's running-stat update) waits for the
+  training slices (ROADMAP.md queue 1, Slices A-C) and raises;
+- ``output_type(in_type)``, ``param_roles()``.
+
+All compute goes through the functional ops in ``ops/``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+
+from gan_deeplearning4j_tpu_torch.nn.input_type import InputType
+from gan_deeplearning4j_tpu_torch.ops import activations as act_ops
+from gan_deeplearning4j_tpu_torch.ops import conv as conv_ops
+from gan_deeplearning4j_tpu_torch.ops import initializers as init_ops
+from gan_deeplearning4j_tpu_torch.ops import linear as linear_ops
+from gan_deeplearning4j_tpu_torch.ops import norm as norm_ops
+from gan_deeplearning4j_tpu_torch.optim.updaters import UpdaterSpec, updater_from_dict
+
+IntPair = Union[int, Tuple[int, int]]
+Shapes = Dict[str, Tuple[int, ...]]
+
+_pair = conv_ops._pair
+
+_TRAINING_WAITS = (
+    "training-mode forward passes wait for the training slices "
+    "(ROADMAP.md queue 1, Slices A-C)"
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class Layer:
+    """Base layer config. ``activation``/``weight_init``/``updater``/``l2`` of
+    None mean "inherit the graph default" (resolved by GraphBuilder)."""
+
+    activation: Optional[str] = None
+    weight_init: Optional[str] = None
+    updater: Optional[UpdaterSpec] = None
+    l2: Optional[float] = None
+
+    def param_shapes(self, in_type: InputType) -> Shapes:
+        return {}
+
+    def init(self, generator: torch.Generator, in_type: InputType) -> Dict[str, torch.Tensor]:
+        """Fresh CPU params: ``W`` from the layer's initializer, everything
+        else zeros (BatchNormalization overrides)."""
+        shapes = self.param_shapes(in_type)
+        out = {}
+        for name, shape in shapes.items():
+            if name == "W":
+                out[name] = init_ops.get(self.weight_init or "xavier")(generator, shape)
+            else:
+                out[name] = torch.zeros(shape, dtype=torch.float32)
+        return out
+
+    def apply(self, params, x, *, train: bool = False):
+        raise NotImplementedError
+
+    def output_type(self, in_type: InputType) -> InputType:
+        raise NotImplementedError
+
+    def param_roles(self) -> Dict[str, str]:
+        return {}
+
+    @property
+    def kind(self) -> str:
+        return type(self).__name__
+
+    def _act(self, x):
+        return act_ops.get(self.activation or "identity")(x)
+
+    def has_params(self) -> bool:
+        return bool(self.param_roles())
+
+    def to_dict(self) -> dict:
+        d = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, UpdaterSpec):
+                v = v.to_dict()
+            d[f.name] = v
+        d["type"] = self.kind
+        return d
+
+
+def _inference_only(train: bool) -> None:
+    if train:
+        raise NotImplementedError(_TRAINING_WAITS)
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseLayer(Layer):
+    """Fully-connected layer (DL4J DenseLayer)."""
+
+    n_out: int = 0
+    n_in: Optional[int] = None  # inferred from in_type when None
+
+    def _n_in(self, in_type: InputType) -> int:
+        return self.n_in if self.n_in is not None else in_type.features
+
+    def param_shapes(self, in_type):
+        return {"W": (self._n_in(in_type), self.n_out), "b": (self.n_out,)}
+
+    def apply(self, params, x, *, train: bool = False):
+        return self._act(linear_ops.dense(x, params["W"], params["b"])), None
+
+    def output_type(self, in_type):
+        return InputType.feed_forward(self.n_out)
+
+    def param_roles(self):
+        return {"W": "weight", "b": "bias"}
+
+
+@dataclasses.dataclass(frozen=True)
+class OutputLayer(DenseLayer):
+    """Dense + attached loss name (DL4J OutputLayer). The loss itself comes
+    with the training slice; serving only runs the forward pass."""
+
+    loss: str = "xent"
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchNormalization(Layer):
+    """BatchNorm over the trailing feature/channel axis (DL4J
+    BatchNormalization). Running ``mean``/``var`` are named params with
+    role "state"."""
+
+    decay: float = norm_ops.DEFAULT_DECAY
+    eps: float = norm_ops.DEFAULT_EPS
+
+    @staticmethod
+    def _n_features(in_type: InputType) -> int:
+        return in_type.shape[-1] if in_type.kind == "cnn" else in_type.features
+
+    def param_shapes(self, in_type):
+        n = (self._n_features(in_type),)
+        return {"gamma": n, "beta": n, "mean": n, "var": n}
+
+    def init(self, generator, in_type):
+        n = self._n_features(in_type)
+        return {
+            "gamma": torch.ones(n),
+            "beta": torch.zeros(n),
+            "mean": torch.zeros(n),
+            "var": torch.ones(n),
+        }
+
+    def apply(self, params, x, *, train: bool = False):
+        _inference_only(train)
+        y = norm_ops.batch_norm_inference(
+            x, params["gamma"], params["beta"], params["mean"], params["var"], eps=self.eps
+        )
+        return self._act(y), None
+
+    def output_type(self, in_type):
+        return in_type
+
+    def param_roles(self):
+        return {"gamma": "gain", "beta": "bias", "mean": "state", "var": "state"}
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvolutionLayer(Layer):
+    """2-D convolution (DL4J ConvolutionLayer). Kernel stored HWIO; shape
+    semantics = DL4J Truncate mode."""
+
+    kernel: IntPair = 5
+    stride: IntPair = 1
+    padding: IntPair = 0
+    n_out: int = 0
+    n_in: Optional[int] = None
+
+    def _n_in(self, in_type: InputType) -> int:
+        return self.n_in if self.n_in is not None else in_type.channels
+
+    def param_shapes(self, in_type):
+        kh, kw = _pair(self.kernel)
+        return {"W": (kh, kw, self._n_in(in_type), self.n_out), "b": (self.n_out,)}
+
+    def apply(self, params, x, *, train: bool = False):
+        y = conv_ops.conv2d(x, params["W"], params["b"], stride=self.stride, padding=self.padding)
+        return self._act(y), None
+
+    def output_type(self, in_type):
+        h, w, _ = in_type.shape
+        kh, kw = _pair(self.kernel)
+        sh, sw = _pair(self.stride)
+        ph, pw = _pair(self.padding)
+        return InputType.convolutional(
+            conv_ops.conv_out_size(h, kh, sh, ph),
+            conv_ops.conv_out_size(w, kw, sw, pw),
+            self.n_out,
+        )
+
+    def param_roles(self):
+        return {"W": "weight", "b": "bias"}
+
+
+@dataclasses.dataclass(frozen=True)
+class SubsamplingLayer(Layer):
+    """Pooling (DL4J SubsamplingLayer). MAX only for now; AVG waits for
+    the slice that needs it (ROADMAP.md queue 1, "Other families")."""
+
+    pool: str = "max"
+    kernel: IntPair = 2
+    stride: IntPair = 2
+    padding: IntPair = 0
+
+    def apply(self, params, x, *, train: bool = False):
+        if self.pool != "max":
+            raise NotImplementedError(
+                f"{self.pool!r} pooling waits for ROADMAP.md queue 1, 'Other families'"
+            )
+        y = conv_ops.max_pool2d(x, kernel=self.kernel, stride=self.stride, padding=self.padding)
+        return self._act(y), None
+
+    def output_type(self, in_type):
+        h, w, c = in_type.shape
+        kh, kw = _pair(self.kernel)
+        sh, sw = _pair(self.stride)
+        ph, pw = _pair(self.padding)
+        return InputType.convolutional(
+            conv_ops.conv_out_size(h, kh, sh, ph),
+            conv_ops.conv_out_size(w, kw, sw, pw),
+            c,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class Upsampling2D(Layer):
+    """Nearest-neighbor upsampling (DL4J Upsampling2D)."""
+
+    size: IntPair = 2
+
+    def apply(self, params, x, *, train: bool = False):
+        return conv_ops.upsample2d(x, scale=self.size), None
+
+    def output_type(self, in_type):
+        h, w, c = in_type.shape
+        sh, sw = _pair(self.size)
+        return InputType.convolutional(h * sh, w * sw, c)
+
+
+@dataclasses.dataclass(frozen=True)
+class ActivationLayer(Layer):
+    """Standalone activation."""
+
+    def apply(self, params, x, *, train: bool = False):
+        return self._act(x), None
+
+    def output_type(self, in_type):
+        return in_type
+
+
+_LAYER_CLASSES = {
+    c.__name__: c
+    for c in (
+        DenseLayer,
+        OutputLayer,
+        BatchNormalization,
+        ConvolutionLayer,
+        SubsamplingLayer,
+        Upsampling2D,
+        ActivationLayer,
+    )
+}
+
+#: layer types of the JAX package that the port does not run yet, and the
+#: ROADMAP.md queue that brings each
+_NOT_YET_PORTED = {
+    "LossLayer": "queue 1, 'Other families' (WGAN-GP critics)",
+    "Deconvolution2D": "queue 1, 'Other families' (dcgan_image)",
+    "DropoutLayer": "queue 1, 'Other families' (the wider layer zoo)",
+    "QuantDenseLayer": "queue 1, 'Quantization', and queue 2 (quant_dense)",
+}
+
+
+def layer_from_dict(d: dict) -> Layer:
+    d = dict(d)
+    kind = d.pop("type")
+    if kind in _NOT_YET_PORTED:
+        raise NotImplementedError(
+            f"layer type {kind!r} is not ported yet: ROADMAP.md {_NOT_YET_PORTED[kind]}"
+        )
+    if kind not in _LAYER_CLASSES:
+        raise KeyError(f"unknown layer type {kind!r}")
+    if d.get("updater") is not None:
+        d["updater"] = updater_from_dict(d["updater"])
+    for k in ("kernel", "stride", "padding", "size"):
+        if isinstance(d.get(k), list):
+            d[k] = tuple(d[k])
+    return _LAYER_CLASSES[kind](**d)

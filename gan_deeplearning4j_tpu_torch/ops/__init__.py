@@ -1,0 +1,12 @@
+"""Functional ops of the PyTorch port: plain functions on tensors.
+
+Each module mirrors its counterpart in ``gan_deeplearning4j_tpu/ops`` and
+keeps its layouts (NHWC activations, HWIO conv kernels, ``(in, out)``
+dense kernels), so checkpoints are shared bit for bit. The JAX package has
+no Pallas kernel: every op there is lowered by XLA, and here every op goes
+to PyTorch's own kernels (cuDNN, cuBLAS) the same way.
+"""
+
+from gan_deeplearning4j_tpu_torch.ops import activations, conv, initializers, linear, norm
+
+__all__ = ["activations", "conv", "initializers", "linear", "norm"]

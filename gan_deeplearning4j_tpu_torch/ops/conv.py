@@ -1,0 +1,66 @@
+"""Convolution, max pooling and nearest upsampling over NHWC tensors —
+counterpart of ``gan_deeplearning4j_tpu/ops/conv.py``.
+
+The public functions keep the JAX package's layouts: NHWC activations and
+HWIO kernels. Inside, ``x.permute(0, 3, 1, 2)`` is an NCHW view over
+channels-last memory, which cuDNN takes without a copy, and
+``w.permute(3, 2, 0, 1)`` is the OIHW kernel. Output sizes follow DL4J's
+``ConvolutionMode.Truncate``: ``floor((in + 2p - k) / s) + 1``.
+
+``conv2d_transpose`` and ``avg_pool2d`` wait for the slice that needs them
+(ROADMAP.md queue 1, "Other families").
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+IntPair = Union[int, Tuple[int, int], Sequence[int]]
+
+
+def _pair(v: IntPair) -> Tuple[int, int]:
+    if isinstance(v, int):
+        return (v, v)
+    a, b = v
+    return (int(a), int(b))
+
+
+def conv_out_size(in_size: int, kernel: int, stride: int, padding: int) -> int:
+    """DL4J Truncate-mode output size: floor((in + 2p - k)/s) + 1."""
+    return (in_size + 2 * padding - kernel) // stride + 1
+
+
+def conv2d(x, w, b=None, *, stride: IntPair = 1, padding: IntPair = 0):
+    """2-D cross-correlation, NHWC input, HWIO kernel, explicit symmetric
+    padding; the bias is added after the convolution, as in the reference."""
+    y = F.conv2d(
+        x.permute(0, 3, 1, 2),
+        w.permute(3, 2, 0, 1),
+        stride=_pair(stride),
+        padding=_pair(padding),
+    ).permute(0, 2, 3, 1)
+    if b is not None:
+        y = y + b  # (out,) broadcasts over NHW
+    return y
+
+
+def max_pool2d(x, *, kernel: IntPair, stride: IntPair, padding: IntPair = 0):
+    """Max pooling over NHWC; padded cells are -inf, so they never win."""
+    ph, pw = _pair(padding)
+    y = x.permute(0, 3, 1, 2)
+    if ph or pw:
+        y = F.pad(y, (pw, pw, ph, ph), value=float("-inf"))
+    y = F.max_pool2d(y, kernel_size=_pair(kernel), stride=_pair(stride))
+    return y.permute(0, 2, 3, 1)
+
+
+def upsample2d(x, *, scale: IntPair = 2):
+    """Nearest-neighbour upsampling of NHWC rows: each pixel repeated
+    ``scale`` times along H and W."""
+    sh, sw = _pair(scale)
+    n, h, w, c = x.shape
+    y = x[:, :, None, :, None, :].expand(n, h, sh, w, sw, c)
+    return y.reshape(n, h * sh, w * sw, c)
