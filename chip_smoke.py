@@ -1,8 +1,8 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-Drives the port's serving path (``gan_deeplearning4j_tpu_torch``) at the
-full width of the DCGAN-MNIST model, with random weights from seed 666, and
-fails (non-zero exit, no result line) if any phase fails:
+Drives the port (``gan_deeplearning4j_tpu_torch``) at the full width of the
+DCGAN-MNIST model, with random weights from seed 666, and fails (non-zero
+exit, no result line) if any phase fails. First the serving path:
 
 1. print the card's ``name, power.limit`` as ``nvidia-smi`` reports them;
 2. build ``gen`` and the transfer classifier ``cv`` and write a serving
@@ -17,10 +17,34 @@ fails (non-zero exit, no result line) if any phase fails:
    shapes, softmax row sums and ``/healthz``;
 6. time each (kind, bucket) with CUDA events over 50 runs — the model's
    forward pass on device-resident rows, and the engine's whole ``run`` —
-   and the HTTP round trip, each printed beside the card's name and power
-   limit.
+   and the HTTP round trip.
 
-The JAX package has no Pallas kernel, so this slice ports none; the
+Then the training path (``GanExperiment``, the reference's settings, data
+from ``prepare_mnist(source="synthetic")``):
+
+a. the same init on the card and on the CPU, 2 fused iterations at batch
+   64 on both with the same z: the card-vs-CPU errors of losses, params,
+   RmsProp caches and BatchNorm stats after each; fails above the tests'
+   one-iteration tolerance (losses 1e-4 relative, every leaf 5e-3
+   normwise) after the first;
+b. resume on the card at batch 200: 2 iterations, ``save_models``,
+   ``load_models`` into a fresh experiment, 2 more, bit-equal to 4
+   straight iterations; the ops ``torch.use_deterministic_algorithms``
+   flags meanwhile are listed;
+c. ``run()`` for 4 iterations with exports and checkpoints, then
+   ``publish_for_serving`` → ``ServingEngine.from_bundle(device="cuda")``,
+   whose ``sample``/``classify`` rows match the trainer's own ``gen``/``cv``
+   within 1e-5;
+d. timing at batch 200 without checkpoints: the median iteration over 20
+   after 5 warm ones (host clock with a synchronize, and CUDA events),
+   images/s, peak memory, a ``torch.profiler`` window of 5 iterations
+   (device-busy share, top 10 kernels), a second window with host
+   activity that splits the iteration by stage (``iteration.*`` and
+   ``step.*`` ranges, host and device time), and the fp32 bound of the
+   iteration's convolution and GEMM FLOPs at 67 TFLOP/s.
+
+Every number is printed beside the card's name and power limit. The JAX
+package has no Pallas kernel, so the port has no hand-written kernel; the
 ``kernels`` line says so. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 ``--json PATH`` also writes every measurement to PATH.
@@ -46,6 +70,9 @@ SEED = 666
 SIZES = (1, 3, 8, 21, 130)
 CPU_TOL = 1e-4
 TIMED_RUNS = 50
+# the one-iteration tolerance of tests/test_torch_train.py
+ITER_LOSS_RTOL, ITER_LEAF_REL = 1e-4, 5e-3
+FP32_FLOP_PER_S = 67e12
 
 
 def _card() -> str:
@@ -218,6 +245,209 @@ def _time_ladder(engine, models) -> list:
     return rows_out
 
 
+def _training_data(directory: str):
+    """The synthetic MNIST CSVs (the reference layout), as arrays and as the
+    CLI's record-reader iterators."""
+    from gan_deeplearning4j_tpu_torch.__main__ import _csv_iterator
+    from gan_deeplearning4j_tpu_torch.data import load_mnist_csv, one_hot_np, prepare_mnist
+
+    train_csv, test_csv = prepare_mnist(directory, seed=SEED, source="synthetic")
+    x, y = load_mnist_csv(train_csv)
+    return x, one_hot_np(y, 10), (lambda: _csv_iterator(train_csv, 200, 784, 10)), \
+        (lambda: _csv_iterator(test_csv, 500, 784, 10))
+
+
+def _config(**overrides):
+    from gan_deeplearning4j_tpu_torch.harness import ExperimentConfig
+
+    return ExperimentConfig(**{"save_models": False, **overrides})
+
+
+def _split_errors(a: dict, b: dict) -> dict:
+    """Max abs error of params, RmsProp caches and BatchNorm running stats
+    between two ``flatten_states``."""
+    out = {"params": 0.0, "caches": 0.0, "bn_stats": 0.0}
+    for key, value in a.items():
+        if not isinstance(value, torch.Tensor):
+            continue
+        kind = ("caches" if "/opt_state/" in key else
+                "bn_stats" if key.endswith("/mean") or key.endswith("/var") else "params")
+        err = float((value.cpu().double() - b[key].cpu().double()).abs().max())
+        out[kind] = max(out[kind], err)
+    return out
+
+
+def _phase_card_vs_cpu(x, y, card: str) -> list:
+    from gan_deeplearning4j_tpu_torch.harness import GanExperiment
+    from gan_deeplearning4j_tpu_torch.harness.experiment import flatten_states, state_divergence
+
+    gpu = GanExperiment(_config(batch_size_train=64))
+    cpu = GanExperiment(_config(batch_size_train=64, use_accelerator=False))
+    rows = []
+    for it in range(2):
+        xb, yb = x[it * 64:(it + 1) * 64], y[it * 64:(it + 1) * 64]
+        lg, lc = gpu.train_iteration(xb, yb), cpu.train_iteration(xb, yb)
+        loss_rel = max(abs(float(lg[k]) - float(lc[k])) / abs(float(lc[k])) for k in lc)
+        loss_abs = max(abs(float(lg[k]) - float(lc[k])) for k in lc)
+        a, b = flatten_states(gpu.digest_states()), flatten_states(cpu.digest_states())
+        div = state_divergence(a, b)
+        row = {"phase": "train_card_vs_cpu", "iteration": it + 1, "batch": 64,
+               "losses_max_abs_err": loss_abs, "losses_max_rel_err": loss_rel,
+               **{f"{k}_max_abs_err": v for k, v in _split_errors(a, b).items()},
+               "max_leaf_rel_err": div["max_leaf_rel"], "card": card}
+        print(json.dumps(row))
+        rows.append(row)
+        if it == 0 and (loss_rel > ITER_LOSS_RTOL or div["max_leaf_rel"] > ITER_LEAF_REL):
+            raise AssertionError(f"card vs CPU after one iteration: {row}")
+    return rows
+
+
+def _phase_resume(x, y, directory: str, card: str) -> dict:
+    import warnings
+
+    from gan_deeplearning4j_tpu_torch.harness import GanExperiment
+    from gan_deeplearning4j_tpu_torch.harness.experiment import flatten_states
+
+    batches = [(x[i * 200:(i + 1) * 200], y[i * 200:(i + 1) * 200]) for i in range(4)]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            straight = GanExperiment(_config())
+            for xb, yb in batches:
+                straight.train_iteration(xb, yb)
+            first = GanExperiment(_config())
+            for xb, yb in batches[:2]:
+                first.train_iteration(xb, yb)
+            first.save_models(directory)
+            resumed = GanExperiment(_config())
+            if resumed.load_models(directory) != 2:
+                raise AssertionError("load_models did not restore iteration 2")
+            for xb, yb in batches[2:]:
+                resumed.train_iteration(xb, yb)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a, b = flatten_states(straight.digest_states()), flatten_states(resumed.digest_states())
+    differ = [k for k in a if not (torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+                                   else a[k] == b[k])]
+    if differ:
+        raise AssertionError(f"resume is not bit-exact on the card: {differ[:5]}")
+    flagged = sorted({str(w.message).split("\n")[0][:160] for w in caught
+                      if "deterministic" in str(w.message)})
+    row = {"phase": "train_resume", "batch": 200, "bit_exact": True, "leaves": len(a),
+           "nondeterministic_ops_flagged": flagged, "card": card}
+    print(json.dumps(row))
+    return row
+
+
+def _phase_run_and_publish(make_train, make_test, directory: str, card: str) -> dict:
+    from gan_deeplearning4j_tpu_torch.harness import GanExperiment
+    from gan_deeplearning4j_tpu_torch.serving import ServingEngine
+
+    exp = GanExperiment(_config(num_iterations=4, save_models=True, checkpoint_every=4,
+                                output_dir=os.path.join(directory, "out")))
+    t0 = time.perf_counter()
+    result = exp.run(make_train(), make_test())
+    run_s = time.perf_counter() - t0
+    files = sorted(os.listdir(exp.config.output_dir))
+    want = {f"mnist_out_{i}.csv" for i in range(1, 5)} | {
+        f"mnist_test_predictions_{i}.csv" for i in range(1, 5)} | {
+        f"mnist_{m}_model.zip" for m in ("dis", "gan", "gen", "CV")}
+    history = result["history"]
+    if result["iterations"] != 4 or not want <= set(files) or len(history) != 4 or not all(
+            np.isfinite([h[k] for k in ("d_loss", "g_loss", "cv_loss")]).all() for h in history):
+        raise AssertionError(f"run(): {result['iterations']} iterations, files {files}, history {history}")
+    bundle = exp.publish_for_serving(os.path.join(directory, "serving"))["directory"]
+    engine = ServingEngine.from_bundle(bundle, device=exp.device)
+    rng = np.random.default_rng(SEED)
+    z = rng.uniform(-1, 1, (21, 2)).astype(np.float32)
+    rows = rng.random((21, 784), dtype=np.float32)
+    with torch.no_grad():
+        want_sample = exp.gen.output(exp.gen_params, torch.from_numpy(z).to(exp.device))
+        want_sample = want_sample.reshape(21, -1).cpu().numpy()
+        want_cls = exp.cv.output(exp.cv_state.params, torch.from_numpy(rows).to(exp.device)).cpu().numpy()
+    errs = {"sample": float(np.max(np.abs(engine.run("sample", z) - want_sample))),
+            "classify": float(np.max(np.abs(engine.run("classify", rows) - want_cls)))}
+    if max(errs.values()) > 1e-5:
+        raise AssertionError(f"published bundle vs trainer: {errs}")
+    row = {"phase": "train_run_publish", "iterations": 4, "run_s": run_s,
+           "losses": [[h["d_loss"], h["g_loss"], h["cv_loss"]] for h in history],
+           "engine_vs_trainer_max_abs_err": errs, "timings_s": result["timings"], "card": card}
+    print(json.dumps(row))
+    return row
+
+
+def _phase_timing(x, y, card: str) -> dict:
+    from gan_deeplearning4j_tpu_torch.harness import GanExperiment
+    from gan_deeplearning4j_tpu_torch.serving.profile import _union_us
+
+    exp = GanExperiment(_config())
+    n = x.shape[0] // 200
+    batches = [(x[(i % n) * 200:(i % n + 1) * 200], y[(i % n) * 200:(i % n + 1) * 200]) for i in range(30)]
+    for xb, yb in batches[:5]:
+        exp.train_iteration(xb, yb)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    host_ms, event_ms = [], []
+    for xb, yb in batches[5:25]:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        exp.train_iteration(xb, yb)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        event_ms.append(start.elapsed_time(end))
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for xb, yb in batches[25:30]:
+            exp.train_iteration(xb, yb)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans, by_name, launches = [], {}, 0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        span = (ev.time_range.start, ev.time_range.end)
+        spans.append(span)
+        if not (ev.name.startswith("Memcpy") or ev.name.startswith("Memset")):
+            launches += 1
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + span[1] - span[0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    # a second window with host activity: the iteration's stages
+    # (record_function ranges) by host time and by the device time of
+    # their kernels
+    cpu_cuda = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=cpu_cuda) as prof:
+        for xb, yb in batches[25:30]:
+            exp.train_iteration(xb, yb)
+        torch.cuda.synchronize()
+    stages: dict = {}
+    for ev in prof.events():  # the host-side ranges; their kernels' time
+        if ev.device_type == torch.autograd.DeviceType.CPU and ev.name.startswith(("iteration.", "step.")):
+            stage = stages.setdefault(ev.name, {"host_ms": 0.0, "kernel_ms": 0.0})
+            stage["host_ms"] += ev.cpu_time_total / 5 / 1e3
+            stage["kernel_ms"] += ev.device_time_total / 5 / 1e3
+    flops = exp.flops_per_iteration(200)
+    median_event = statistics.median(event_ms)
+    bound_ms = flops / FP32_FLOP_PER_S * 1e3
+    row = {"phase": "train_timing", "batch": 200, "iterations_timed": 20,
+           "iteration_ms_host_median": statistics.median(host_ms),
+           "iteration_ms_event_median": median_event,
+           "images_per_s": 200 / statistics.median(host_ms) * 1e3,
+           "peak_memory_mib": peak_mib,
+           "profiled_iterations": 5,
+           "device_busy_share": _union_us(spans) / wall_us,
+           "kernels_per_iteration": launches / 5,
+           "top_kernels": [{"name": k[:90], "ms_per_iteration": us / 5 / 1e3} for k, us in top],
+           "stages_per_iteration": stages,
+           "flops_per_iteration": flops, "fp32_bound_ms": bound_ms,
+           "roofline_share": bound_ms / median_event, "card": card}
+    print(json.dumps(row))
+    return row
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--json", default=None, help="also write every measurement to this file")
@@ -225,6 +455,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    # cuBLAS reads this when it makes its handle: needed for phase (b)'s
+    # deterministic-algorithms check to judge cuBLAS calls
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from gan_deeplearning4j_tpu_torch.serving import ServingEngine
 
     card = _card()
@@ -245,6 +478,13 @@ def main(argv=None) -> int:
                           "staged_equals_host": True, "card": card}))
         http = _check_http(engine)
         ladder = _time_ladder(engine, models)
+        x, y, make_train, make_test = _training_data(os.path.join(directory, "data"))
+        training = {
+            "card_vs_cpu": _phase_card_vs_cpu(x, y, card),
+            "resume": _phase_resume(x, y, os.path.join(directory, "ckpt"), card),
+            "run_publish": _phase_run_and_publish(make_train, make_test, directory, card),
+            "timing": _phase_timing(x, y, card),
+        }
     top = engine.buckets[-1]
     for row in ladder:
         print(json.dumps({"phase": "latency", **row, "card": card}))
@@ -256,12 +496,13 @@ def main(argv=None) -> int:
     if args.json:
         with open(args.json, "w") as fh:
             json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-                       "parity": errs, "http": http, "warmup_s": warmup_s, "ladder": ladder}, fh,
-                      indent=2)
+                       "parity": errs, "http": http, "warmup_s": warmup_s, "ladder": ladder,
+                       "training": training}, fh, indent=2)
     print(json.dumps({"kernels": [], "reason": (
         "the JAX package has no Pallas kernel (no pl.pallas_call anywhere in the repo); "
-        "this slice runs convolutions, GEMMs and pooling through PyTorch (cuDNN, cuBLAS), "
-        "as the JAX package leaves them to XLA")}))
+        "the serving and training paths run convolutions, GEMMs, pooling and their "
+        "backward passes through PyTorch (cuDNN, cuBLAS, ATen) by autograd, and the "
+        "optimizer update as torch._foreach_* ops, as the JAX package leaves them to XLA")}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -9,6 +9,12 @@ so this is a checked copy with no transposes: every layer and param name,
 shape and dtype is checked against the port's graph, and a missing or
 extra key raises.
 
+``train_state_from_numpy(state, device, graph=...)`` does the same for a
+whole ``TrainState`` (params, updater state, step): what the JAX package's
+``TrainState`` becomes under ``np.asarray``, and what a checkpoint with
+updater state holds. The updater state is checked key for key, shape for
+shape and dtype for dtype against a fresh ``GraphOptimizer(graph).init``.
+
 Leaves may be numpy arrays (including ``ml_dtypes`` bfloat16 arrays, as
 ``np.asarray`` gives them for a bf16 JAX array) or CPU tensors (the
 serializer decodes bf16 members straight into tensors: numpy has no
@@ -74,3 +80,47 @@ def params_from_numpy(tree: Dict, device: DeviceLike, *, graph) -> Dict[str, Dic
                 )
             out[layer][name] = t.to(dev)
     return out
+
+
+def train_state_from_numpy(state, device: DeviceLike, *, graph):
+    """Checked copy of a train state onto ``device``: ``state`` has
+    ``params``, ``opt_state`` and ``step`` as attributes or as dict keys.
+    Returns the port's ``TrainState`` (``step`` a Python int). Raises
+    ``KeyError``/``ValueError`` as :func:`params_from_numpy` does."""
+    from gan_deeplearning4j_tpu_torch.optim.optimizer import GraphOptimizer
+    from gan_deeplearning4j_tpu_torch.parallel.trainer import TrainState
+
+    def part(name):
+        return state[name] if isinstance(state, dict) else getattr(state, name)
+
+    dev = resolve_device(device)
+    params = params_from_numpy(part("params"), dev, graph=graph)
+    # the expected slots, shapes and dtypes, without allocating them
+    want = GraphOptimizer(graph).init(
+        {layer: {n: p.to("meta") for n, p in lp.items()} for layer, lp in params.items()}
+    )
+    got = part("opt_state")
+    opt_state: Dict = {}
+    for layer in sorted(set(want) | set(got)):
+        if layer not in want or layer not in got:
+            raise KeyError(f"updater state layers do not match the graph at {layer!r}")
+        opt_state[layer] = {}
+        for pname in sorted(set(want[layer]) | set(got[layer])):
+            if pname not in want[layer] or pname not in got[layer]:
+                raise KeyError(f"updater state of {layer!r} does not match the graph at {pname!r}")
+            slots_want, slots_got = want[layer][pname], got[layer][pname]
+            if set(slots_want) != set(slots_got):
+                raise KeyError(
+                    f"{layer}/{pname}: updater slots {sorted(slots_got)}, "
+                    f"graph wants {sorted(slots_want)}"
+                )
+            opt_state[layer][pname] = {}
+            for slot, ref in slots_want.items():
+                t = leaf_to_tensor(slots_got[slot])
+                if tuple(t.shape) != tuple(ref.shape) or t.dtype != ref.dtype:
+                    raise ValueError(
+                        f"{layer}/{pname}/{slot}: graph wants {tuple(ref.shape)} {ref.dtype}, "
+                        f"got {tuple(t.shape)} {t.dtype}"
+                    )
+                opt_state[layer][pname][slot] = t.to(dev)
+    return TrainState(params, opt_state, int(np.asarray(part("step"))))

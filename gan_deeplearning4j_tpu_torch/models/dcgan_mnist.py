@@ -1,16 +1,20 @@
 """The reference's DCGAN-MNIST graphs in the PyTorch port — counterpart of
-``gan_deeplearning4j_tpu/models/dcgan_mnist.py``, for what serving loads:
-the discriminator ``dis``, the sampler ``gen`` and the transfer classifier
-``cv``, with layer names string for string (the checkpoint format and the
-weight-sync protocol address params by ``(layer, name)``).
+``gan_deeplearning4j_tpu/models/dcgan_mnist.py``: the discriminator
+``dis``, the sampler ``gen``, the stacked ``gan`` and the transfer
+classifier ``cv``, with layer names string for string (the checkpoint
+format and the weight-sync protocol address params by ``(layer, name)``).
 
 - ``gen``: z(2) → BN → dense 1024 → dense 6272 → BN → up×2 → conv5 128→64
-  → up×2 → conv5 64→1, sigmoid;
-- ``cv``: BN → conv5 s2 1→64 → maxpool 2 s1 → conv5 s2 64→128 → maxpool →
-  dense 1152→1024 → BN → softmax 10.
+  → up×2 → conv5 64→1, sigmoid; every updater at LR 0.0;
+- ``dis``: BN → conv5 s2 1→64 → maxpool 2 s1 → conv5 s2 64→128 → maxpool →
+  dense 1152→1024 → sigmoid 1 under XENT;
+- ``gan``: the generator stack (LR 0.004) feeding a copy of the
+  discriminator stack frozen at LR 0.0, one XENT loss at the end;
+- ``cv``: ``dis`` frozen up to ``dis_dense_layer_6``, then BN → softmax 10
+  under MCXENT.
 
-The stacked ``gan`` graph and the sync maps come with the training slices
-(ROADMAP.md queue 1, Slice C).
+``DIS_TO_GAN``, ``GAN_TO_GEN`` and ``DIS_TO_CV`` are the reference's
+weight-sync copies as ``{src_layer: dst_layer}`` maps.
 """
 
 from __future__ import annotations
@@ -153,6 +157,19 @@ def build_generator(cfg: DcganConfig = DcganConfig()) -> ComputationGraph:
     return b.build()
 
 
+def build_gan(cfg: DcganConfig = DcganConfig()) -> ComputationGraph:
+    """Stacked GAN: trainable generator (LR 0.004) feeding a frozen
+    discriminator copy (LR 0.0), so the generator's gradients flow through
+    the frozen D."""
+    b = GraphBuilder(_graph_config(cfg))
+    b.add_inputs("gan_input_layer_0")
+    b.set_input_types(InputType.feed_forward(cfg.z_size))
+    gen_out = _add_generator_layers(b, "gan", cfg.gen_learning_rate, cfg, "gan_input_layer_0")
+    out = _add_discriminator_layers(b, "gan_dis", 9, cfg.frozen_learning_rate, cfg, gen_out)
+    b.set_outputs(out)
+    return b.build()
+
+
 def build_transfer_classifier(dis_graph: ComputationGraph, dis_params, cfg: DcganConfig = DcganConfig()):
     """The ``computerVision`` classifier: dis features frozen below
     ``dis_dense_layer_6``, the sigmoid head replaced by BatchNorm(1024) +
@@ -183,3 +200,32 @@ def build_transfer_classifier(dis_graph: ComputationGraph, dis_params, cfg: Dcga
         )
         .build()
     )
+
+
+# dis → gan frozen tail: refresh the stacked GAN's discriminator copy after
+# a dis step
+DIS_TO_GAN = {
+    "dis_batch_layer_1": "gan_dis_batch_layer_9",
+    "dis_conv2d_layer_2": "gan_dis_conv2d_layer_10",
+    "dis_conv2d_layer_4": "gan_dis_conv2d_layer_12",
+    "dis_dense_layer_6": "gan_dis_dense_layer_14",
+    "dis_output_layer_7": "gan_dis_output_layer_15",
+}
+
+# gan → gen: refresh the frozen sampler after a generator step
+GAN_TO_GEN = {
+    "gan_batch_1": "gen_batch_1",
+    "gan_dense_layer_2": "gen_dense_layer_2",
+    "gan_dense_layer_3": "gen_dense_layer_3",
+    "gan_batch_4": "gen_batch_4",
+    "gan_conv2d_6": "gen_conv2d_6",
+    "gan_conv2d_8": "gen_conv2d_8",
+}
+
+# dis → classifier feature layers (the head layers are the classifier's own)
+DIS_TO_CV = {
+    "dis_batch_layer_1": "dis_batch_layer_1",
+    "dis_conv2d_layer_2": "dis_conv2d_layer_2",
+    "dis_conv2d_layer_4": "dis_conv2d_layer_4",
+    "dis_dense_layer_6": "dis_dense_layer_6",
+}

@@ -1,23 +1,28 @@
 """ComputationGraph of the PyTorch port — counterpart of
 ``gan_deeplearning4j_tpu/nn/graph.py``.
 
-Same capability surface for what serving needs: ``GraphBuilder`` with the
-graph-level defaults that per-layer settings override (DL4J's config
-inheritance), the automatic boundary preprocessors from declared
-InputTypes, and ``ComputationGraph`` with ``init``, ``output``,
-``feed_forward``, ``param_shapes``/``param_count`` and
-``to_dict``/``from_dict`` over the same ``topology.json`` schema, so a
-topology written by either package builds in the other.
+- ``GraphBuilder`` with the graph-level defaults that per-layer settings
+  override (DL4J's config inheritance) and the automatic boundary
+  preprocessors from declared InputTypes;
+- ``ComputationGraph``: ``init``, ``apply`` (params in, outputs and the
+  BatchNorm running-stat updates out), ``output``, ``feed_forward``,
+  ``loss`` (output-layer losses + L2 on weights), ``summary``, the
+  named-param protocol ``get_param``/``set_param``/``copy_params`` (the
+  reference's weight sync), ``param_shapes``/``param_count`` and
+  ``to_dict``/``from_dict`` over the same ``topology.json`` schema, so a
+  topology written by either package builds in the other.
 
 Params are a plain dict of dicts of tensors, ``{layer: {name: tensor}}``,
-keyed exactly as in the JAX package. Combining vertices (MergeVertex,
-ElementWiseVertex) and the training surface (``loss``, ``l2_penalty``,
-``copy_params``) wait for the training slices (ROADMAP.md queue 1).
+keyed exactly as in the JAX package, and every method is functional: it
+returns new dicts and never writes into a tensor it was given. Combining
+vertices (MergeVertex, ElementWiseVertex) wait for ROADMAP.md queue 1,
+'Other families'.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -28,6 +33,7 @@ from gan_deeplearning4j_tpu_torch.nn.layers import (
     ConvolutionLayer,
     DenseLayer,
     Layer,
+    OutputLayer,
     SubsamplingLayer,
     Upsampling2D,
     layer_from_dict,
@@ -221,6 +227,20 @@ class ComputationGraph:
     def vertex(self, name: str) -> VertexSpec:
         return self._by_name[name]
 
+    def layer_updaters(self) -> Dict[str, UpdaterSpec]:
+        """Per-layer updater specs of the layers that own params (what
+        ``GraphOptimizer`` applies)."""
+        return {v.name: v.layer.updater for v in self.vertices if v.layer.has_params()}
+
+    def param_roles(self) -> Dict[str, Dict[str, str]]:
+        return {v.name: v.layer.param_roles() for v in self.vertices if v.layer.has_params()}
+
+    def output_layers(self) -> List[VertexSpec]:
+        return [
+            v for v in self.vertices
+            if v.name in self.output_names and isinstance(v.layer, OutputLayer)
+        ]
+
     # -- params -------------------------------------------------------------
     def param_shapes(self) -> Dict[str, Dict[str, Tuple[int, ...]]]:
         """``{layer: {name: shape}}`` for every layer that owns params, without
@@ -234,14 +254,9 @@ class ComputationGraph:
     def param_count(self, params: Optional[Dict] = None) -> int:
         if params is not None:
             return sum(int(p.numel()) for lp in params.values() for p in lp.values())
-        total = 0
-        for shapes in self.param_shapes().values():
-            for shape in shapes.values():
-                n = 1
-                for d in shape:
-                    n *= int(d)
-                total += n
-        return total
+        return sum(
+            math.prod(shape) for shapes in self.param_shapes().values() for shape in shapes.values()
+        )
 
     def init(self, seed: Optional[int] = None, *, device: DeviceLike = None) -> Dict[str, Dict[str, torch.Tensor]]:
         """Fresh params from one ``torch.Generator`` seeded with the config
@@ -260,31 +275,148 @@ class ComputationGraph:
 
     # -- forward ------------------------------------------------------------
     def _traverse(self, params: Dict, inputs, *, train: bool):
+        """Shared forward walk: ``(activations by vertex, new_params)``."""
         if not isinstance(inputs, dict):
             if len(self.input_names) != 1:
                 raise ValueError("graph has multiple inputs; pass a dict")
             inputs = {self.input_names[0]: inputs}
         acts: Dict[str, torch.Tensor] = dict(inputs)
+        new_params = dict(params)
         for v in self.vertices:
             x = acts[v.inputs[0]]
             if v.preprocessor is not None:
                 x = v.preprocessor(x)
-            y, _ = v.layer.apply(params.get(v.name, {}), x, train=train)
+            y, updates = v.layer.apply(params.get(v.name, {}), x, train=train)
+            if updates:
+                new_params[v.name] = {**params[v.name], **updates}
             acts[v.name] = y
-        return acts
+        return acts, new_params
+
+    def apply(self, params: Dict, inputs, *, train: bool = False):
+        """Feed-forward: ``(outputs by name, new_params)``. With
+        ``train=True`` BatchNorm normalizes by the batch and ``new_params``
+        carries its updated running statistics; otherwise it is ``params``."""
+        acts, new_params = self._traverse(params, inputs, train=train)
+        return {o: acts[o] for o in self.output_names}, new_params
 
     def output(self, params: Dict, inputs, *, train: bool = False):
         """Inference (DL4J ``graph.output(x)``): the single output tensor, or a
         dict for multi-output graphs."""
-        acts = self._traverse(params, inputs, train=train)
+        outs, _ = self.apply(params, inputs, train=train)
         if len(self.output_names) == 1:
-            return acts[self.output_names[0]]
-        return {o: acts[o] for o in self.output_names}
+            return outs[self.output_names[0]]
+        return outs
 
     def feed_forward(self, params: Dict, inputs, *, train: bool = False):
         """Per-vertex activation map (DL4J ``ComputationGraph.feedForward``):
         ``{vertex name: activation}``, inputs included."""
-        return self._traverse(params, inputs, train=train)
+        return self._traverse(params, inputs, train=train)[0]
+
+    # -- loss ---------------------------------------------------------------
+    def l2_penalty(self, params: Dict) -> torch.Tensor:
+        """``0.5 · l2 · ‖W‖²`` summed over weight-role params (DL4J's L2 score
+        term). Biases, BatchNorm gains and running stats are exempt, which
+        torch's ``weight_decay`` would not respect."""
+        total = None
+        for v in self.vertices:
+            l2 = v.layer.l2 or 0.0
+            if not v.layer.has_params() or l2 <= 0.0:
+                continue
+            for pname, role in v.layer.param_roles().items():
+                if role == "weight":
+                    term = 0.5 * l2 * torch.sum(params[v.name][pname].float() ** 2)
+                    total = term if total is None else total + term
+        if total is None:
+            leaf = next((t for lp in params.values() for t in lp.values()), None)
+            total = torch.zeros((), device=None if leaf is None else leaf.device)
+        return total
+
+    def loss(self, params: Dict, inputs, labels, *, train: bool = True):
+        """Total training loss: output-layer losses + the L2 penalty.
+        Returns ``(loss, (outputs, new_params))``."""
+        outs, new_params = self.apply(params, inputs, train=train)
+        if not isinstance(labels, dict):
+            if len(self.output_names) != 1:
+                raise ValueError("graph has multiple outputs; pass labels as a dict")
+            labels = {self.output_names[0]: labels}
+        out_layers = self.output_layers()
+        if not out_layers:
+            raise ValueError("graph has no loss-bearing output layers")
+        total = None
+        for v in out_layers:
+            term = v.layer.loss_fn(outs[v.name], labels[v.name])
+            total = term if total is None else total + term
+        return total + self.l2_penalty(params), (outs, new_params)
+
+    # -- named-parameter protocol ------------------------------------------
+    @staticmethod
+    def get_param(params: Dict, layer: str, name: str) -> torch.Tensor:
+        """DL4J ``graph.getLayer(l).getParam(n)``."""
+        return params[layer][name]
+
+    @staticmethod
+    def set_param(params: Dict, layer: str, name: str, value) -> Dict:
+        """Functional DL4J ``setParam``: returns a new params tree."""
+        if layer not in params:
+            raise KeyError(f"unknown layer {layer!r}")
+        if name not in params[layer]:
+            raise KeyError(f"layer {layer!r} has no param {name!r}")
+        if tuple(params[layer][name].shape) != tuple(value.shape):
+            raise ValueError(
+                f"shape mismatch setting {layer}/{name}: "
+                f"{tuple(params[layer][name].shape)} vs {tuple(value.shape)}"
+            )
+        return {**params, layer: {**params[layer], name: value}}
+
+    @staticmethod
+    def copy_params(src_params: Dict, dst_params: Dict, mapping: Dict[str, str]) -> Dict:
+        """Bulk named-parameter copy, the reference's weight-sync protocol
+        (dis→gan, gan→gen and dis→classifier) as one functional op.
+        ``mapping`` is ``{src_layer: dst_layer}``; every param of each layer
+        is rebound. Tensors are shared, not copied: no caller writes into
+        a tensor in place."""
+        out = dict(dst_params)
+        for src_layer, dst_layer in mapping.items():
+            if src_layer not in src_params:
+                raise KeyError(f"source layer {src_layer!r} not in params")
+            if dst_layer not in out:
+                raise KeyError(f"dest layer {dst_layer!r} not in params")
+            for pname, value in src_params[src_layer].items():
+                if pname not in out[dst_layer]:
+                    raise KeyError(f"dest layer {dst_layer!r} has no param {pname!r}")
+                if tuple(out[dst_layer][pname].shape) != tuple(value.shape):
+                    raise ValueError(
+                        f"shape mismatch copying {src_layer}/{pname} -> {dst_layer}: "
+                        f"{tuple(value.shape)} vs {tuple(out[dst_layer][pname].shape)}"
+                    )
+            out[dst_layer] = {**out[dst_layer], **dict(src_params[src_layer])}
+        return out
+
+    # -- reporting ----------------------------------------------------------
+    def summary(self, params: Optional[Dict] = None) -> str:
+        """DL4J ``graph.summary()`` analog."""
+        if params is not None:
+            counts = {k: sum(int(t.numel()) for t in lp.values()) for k, lp in params.items()}
+        else:
+            counts = {
+                k: sum(math.prod(s) for s in shapes.values())
+                for k, shapes in self.param_shapes().items()
+            }
+        rows = [("Name (type)", "In", "Out", "# Params")]
+        for name, t in zip(self.input_names, self.input_types):
+            rows.append((f"{name} (Input)", "-", str(t), "0"))
+        total = 0
+        for v in self.vertices:
+            n = counts.get(v.name, 0)
+            total += n
+            pre = f" [+{type(v.preprocessor).__name__}]" if v.preprocessor is not None else ""
+            rows.append((f"{v.name} ({v.layer.kind}){pre}", str(v.in_type), str(v.out_type), str(n)))
+        widths = [max(len(r[i]) for r in rows) for i in range(4)]
+        lines = ["  ".join(c.ljust(w) for c, w in zip(r, widths)).rstrip() for r in rows]
+        lines.insert(1, "-" * (sum(widths) + 6))
+        lines.append("-" * (sum(widths) + 6))
+        lines.append(f"Total params: {total}")
+        return "\n".join(lines)
 
     # -- serialization ------------------------------------------------------
     def to_dict(self) -> dict:

@@ -1,7 +1,7 @@
 """Layer configs of the PyTorch port — counterpart of
-``gan_deeplearning4j_tpu/nn/layers.py``, for the layers the serving path
-runs: Dense, Output, BatchNormalization, Convolution, Subsampling (max),
-Upsampling2D and Activation.
+``gan_deeplearning4j_tpu/nn/layers.py``, for the layers the DCGAN-MNIST
+graphs run: Dense, Output, BatchNormalization, Convolution, Subsampling
+(max), Upsampling2D and Activation.
 
 Each layer is a frozen config dataclass with the same fields, and so the
 same ``to_dict`` schema, as its JAX counterpart:
@@ -12,10 +12,11 @@ same ``to_dict`` schema, as its JAX counterpart:
   params by ``(layer, name)``;
 - ``init(generator, in_type)``: a dict of CPU tensors drawn from an
   explicit ``torch.Generator``;
-- ``apply(params, x, train=False) -> (y, state_updates)``: inference only
-  for now. ``train=True`` (BatchNorm's running-stat update) waits for the
-  training slices (ROADMAP.md queue 1, Slices A-C) and raises;
-- ``output_type(in_type)``, ``param_roles()``.
+- ``apply(params, x, train=False) -> (y, state_updates)``:
+  ``state_updates`` is a dict of "state"-role params rewritten by the
+  training forward pass (BatchNorm's running statistics) or None;
+- ``output_type(in_type)``, ``param_roles()`` (L2 applies to "weight"
+  params only, and updaters skip "state").
 
 All compute goes through the functional ops in ``ops/``.
 """
@@ -32,6 +33,7 @@ from gan_deeplearning4j_tpu_torch.ops import activations as act_ops
 from gan_deeplearning4j_tpu_torch.ops import conv as conv_ops
 from gan_deeplearning4j_tpu_torch.ops import initializers as init_ops
 from gan_deeplearning4j_tpu_torch.ops import linear as linear_ops
+from gan_deeplearning4j_tpu_torch.ops import losses as loss_ops
 from gan_deeplearning4j_tpu_torch.ops import norm as norm_ops
 from gan_deeplearning4j_tpu_torch.optim.updaters import UpdaterSpec, updater_from_dict
 
@@ -39,12 +41,6 @@ IntPair = Union[int, Tuple[int, int]]
 Shapes = Dict[str, Tuple[int, ...]]
 
 _pair = conv_ops._pair
-
-_TRAINING_WAITS = (
-    "training-mode forward passes wait for the training slices "
-    "(ROADMAP.md queue 1, Slices A-C)"
-)
-
 
 @dataclasses.dataclass(frozen=True)
 class Layer:
@@ -101,11 +97,6 @@ class Layer:
         return d
 
 
-def _inference_only(train: bool) -> None:
-    if train:
-        raise NotImplementedError(_TRAINING_WAITS)
-
-
 @dataclasses.dataclass(frozen=True)
 class DenseLayer(Layer):
     """Fully-connected layer (DL4J DenseLayer)."""
@@ -131,10 +122,13 @@ class DenseLayer(Layer):
 
 @dataclasses.dataclass(frozen=True)
 class OutputLayer(DenseLayer):
-    """Dense + attached loss name (DL4J OutputLayer). The loss itself comes
-    with the training slice; serving only runs the forward pass."""
+    """Dense + attached loss (DL4J OutputLayer: XENT with sigmoid on the
+    discriminator, MCXENT with softmax on the classifier)."""
 
     loss: str = "xent"
+
+    def loss_fn(self, probs, labels):
+        return loss_ops.get(self.loss)(probs, labels)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,7 +158,12 @@ class BatchNormalization(Layer):
         }
 
     def apply(self, params, x, *, train: bool = False):
-        _inference_only(train)
+        if train:
+            y, new_mean, new_var = norm_ops.batch_norm_train(
+                x, params["gamma"], params["beta"], params["mean"], params["var"],
+                eps=self.eps, decay=self.decay,
+            )
+            return self._act(y), {"mean": new_mean, "var": new_var}
         y = norm_ops.batch_norm_inference(
             x, params["gamma"], params["beta"], params["mean"], params["var"], eps=self.eps
         )

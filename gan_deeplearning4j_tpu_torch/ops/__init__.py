@@ -7,6 +7,6 @@ no Pallas kernel: every op there is lowered by XLA, and here every op goes
 to PyTorch's own kernels (cuDNN, cuBLAS) the same way.
 """
 
-from gan_deeplearning4j_tpu_torch.ops import activations, conv, initializers, linear, norm
+from gan_deeplearning4j_tpu_torch.ops import activations, clipping, conv, initializers, linear, losses, norm
 
-__all__ = ["activations", "conv", "initializers", "linear", "norm"]
+__all__ = ["activations", "clipping", "conv", "initializers", "linear", "losses", "norm"]

@@ -1,19 +1,42 @@
-"""Batch normalization, inference form — counterpart of
-``gan_deeplearning4j_tpu/ops/norm.py::batch_norm_inference``.
+"""Batch normalization — counterpart of
+``gan_deeplearning4j_tpu/ops/norm.py``.
 
-Normalizes over the last axis (features for 2-D inputs, channels for NHWC
-4-D inputs) with the running statistics, eps 1e-5 inside the square root,
-written out by the same formula as the reference rather than through
-``F.batch_norm``. The training form, with DL4J's running-stat update
-(population variance, decay 0.9), waits for the training slice.
+Normalizes over every axis but the last (features for 2-D inputs, channels
+for NHWC 4-D inputs), eps 1e-5 inside the square root, written out by the
+same formula as the reference rather than through ``F.batch_norm``:
+
+- ``batch_norm_train`` normalizes by the batch mean and the **population**
+  variance (``correction=0``; torch's default is the unbiased estimate) and
+  returns DL4J's running-stat update, ``decay·running + (1-decay)·batch``
+  with decay 0.9. The running stats are computed outside autograd and cast
+  back to their own dtype. ``F.batch_norm`` would update ``running_var``
+  with the unbiased variance, and its momentum is ``1-decay``;
+- ``batch_norm_inference`` uses the running statistics.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 DEFAULT_EPS = 1e-5
 DEFAULT_DECAY = 0.9
+
+
+def batch_norm_train(
+    x, gamma, beta, running_mean, running_var, *, eps: float = DEFAULT_EPS, decay: float = DEFAULT_DECAY
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Training-mode BN: ``(y, new_running_mean, new_running_var)``."""
+    axes = tuple(range(x.ndim - 1))
+    mean = torch.mean(x, dim=axes)
+    var = torch.var(x, dim=axes, correction=0)
+    inv = torch.reciprocal(torch.sqrt(var + eps))
+    y = (x - mean) * inv * gamma + beta
+    with torch.no_grad():
+        new_mean = (decay * running_mean + (1.0 - decay) * mean).to(running_mean.dtype)
+        new_var = (decay * running_var + (1.0 - decay) * var).to(running_var.dtype)
+    return y, new_mean, new_var
 
 
 def batch_norm_inference(x, gamma, beta, running_mean, running_var, *, eps: float = DEFAULT_EPS):

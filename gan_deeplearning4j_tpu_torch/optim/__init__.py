@@ -1,6 +1,8 @@
-"""Updater specs of the PyTorch port (configuration only; the update rules
-come with the training slice)."""
+"""Optimizers of the PyTorch port: the per-leaf updater rules (DL4J
+RmsProp, Adam, Sgd, NoOp) and ``GraphOptimizer``, which applies each
+layer's updater after gradient clipping."""
 
+from gan_deeplearning4j_tpu_torch.optim.optimizer import GraphOptimizer
 from gan_deeplearning4j_tpu_torch.optim.updaters import (
     Adam,
     NoOp,
@@ -10,4 +12,4 @@ from gan_deeplearning4j_tpu_torch.optim.updaters import (
     updater_from_dict,
 )
 
-__all__ = ["Adam", "NoOp", "RmsProp", "Sgd", "UpdaterSpec", "updater_from_dict"]
+__all__ = ["Adam", "GraphOptimizer", "NoOp", "RmsProp", "Sgd", "UpdaterSpec", "updater_from_dict"]

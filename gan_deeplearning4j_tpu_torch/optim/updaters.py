@@ -1,14 +1,37 @@
-"""Updater specs — counterpart of ``gan_deeplearning4j_tpu/optim/updaters.py``,
-for now only as configuration: the dataclasses, ``with_learning_rate``
-(transfer learning freezes a layer with LR 0.0) and ``to_dict`` /
-``updater_from_dict``, so that ``topology.json`` round-trips between the
-two packages. The update rules (DL4J RmsProp with its cache starting at
-eps, Adam) wait for the training slices (ROADMAP.md queue 1, Slice B).
+"""Updater specs and update rules — counterpart of
+``gan_deeplearning4j_tpu/optim/updaters.py``.
+
+``RmsProp(lr, rmsDecay, epsilon)`` is DL4J's RmsPropUpdater:
+
+    cache ← cache · decay + g² · (1 - decay)      (cache starts at eps)
+    Δ     = g · lr / sqrt(cache + eps)
+
+The reference runs it with decay = eps = 1e-8, so the cache is about g²
+and the update about ``lr·sign(g)``. ``torch.optim.RMSprop`` starts its
+cache at zero and adds eps outside the square root: a different optimizer
+at these settings, so it is not used. ``1 - 1e-8`` rounds to 1.0 in fp32,
+exactly as in the reference, and the expressions keep the reference's
+order of operations.
+
+Learning rate 0.0 is the reference's freezing mechanism: the update is
+exactly zero, but the state still advances.
+
+Specs are frozen dataclasses (hashable, ``to_dict``/``updater_from_dict``
+round-trip through ``topology.json``). ``init_state(param)`` makes one
+leaf's state; ``apply_group(states, grads, params)`` updates a list of
+leaves that share the spec in one ``torch._foreach_*`` pass and returns
+``(deltas, new_states)``; ``apply`` is the one-leaf form. Nothing is
+written in place.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Dict, List, Sequence, Tuple
+
+import torch
+
+State = Dict[str, Any]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -18,6 +41,19 @@ class UpdaterSpec:
     @property
     def kind(self) -> str:
         return type(self).__name__.lower()
+
+    def init_state(self, param) -> State:
+        return {}
+
+    def apply_group(
+        self, states: Sequence[State], grads: Sequence[torch.Tensor], params: Sequence[torch.Tensor]
+    ) -> Tuple[List[torch.Tensor], List[State]]:
+        raise NotImplementedError
+
+    def apply(self, state: State, grad, param) -> Tuple[torch.Tensor, State]:
+        """One leaf: ``(delta_to_subtract, new_state)``."""
+        deltas, states = self.apply_group([state], [grad], [param])
+        return deltas[0], states[0]
 
     def with_learning_rate(self, lr: float) -> "UpdaterSpec":
         return dataclasses.replace(self, learning_rate=lr)
@@ -32,10 +68,16 @@ class UpdaterSpec:
 class Sgd(UpdaterSpec):
     learning_rate: float = 0.01
 
+    def apply_group(self, states, grads, params):
+        return torch._foreach_mul(list(grads), self.learning_rate), list(states)
+
 
 @dataclasses.dataclass(frozen=True)
 class NoOp(UpdaterSpec):
     """Never updates (hard-freeze alternative to lr=0)."""
+
+    def apply_group(self, states, grads, params):
+        return [torch.zeros_like(p) for p in params], list(states)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,13 +88,51 @@ class RmsProp(UpdaterSpec):
     rms_decay: float = 0.95
     epsilon: float = 1e-8
 
+    def init_state(self, param):
+        return {"cache": torch.full_like(param, self.epsilon)}
+
+    def apply_group(self, states, grads, params):
+        grads = list(grads)
+        caches = torch._foreach_add(
+            torch._foreach_mul([s["cache"] for s in states], self.rms_decay),
+            torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - self.rms_decay),
+        )
+        deltas = torch._foreach_div(
+            torch._foreach_mul(grads, self.learning_rate),
+            torch._foreach_sqrt(torch._foreach_add(caches, self.epsilon)),
+        )
+        return deltas, [{"cache": c} for c in caches]
+
 
 @dataclasses.dataclass(frozen=True)
 class Adam(UpdaterSpec):
+    """Adam (unused by the reference's RmsProp-only graphs; the wider
+    configs use it). ``t`` is an int32 scalar per leaf."""
+
     learning_rate: float = 0.001
     beta1: float = 0.9
     beta2: float = 0.999
     epsilon: float = 1e-8
+
+    def init_state(self, param):
+        return {
+            "m": torch.zeros_like(param),
+            "v": torch.zeros_like(param),
+            "t": torch.zeros((), dtype=torch.int32, device=param.device),
+        }
+
+    def apply_group(self, states, grads, params):
+        deltas, new_states = [], []
+        for state, grad in zip(states, grads):
+            t = state["t"] + 1
+            m = self.beta1 * state["m"] + (1 - self.beta1) * grad
+            v = self.beta2 * state["v"] + (1 - self.beta2) * grad ** 2
+            tf = t.to(torch.float32)
+            m_hat = m / (1 - torch.pow(self.beta1, tf))
+            v_hat = v / (1 - torch.pow(self.beta2, tf))
+            deltas.append(self.learning_rate * m_hat / (torch.sqrt(v_hat) + self.epsilon))
+            new_states.append({"m": m, "v": v, "t": t})
+        return deltas, new_states
 
 
 def updater_from_dict(d: dict) -> UpdaterSpec:

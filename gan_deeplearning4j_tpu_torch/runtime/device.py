@@ -10,6 +10,9 @@ one thing the serving path needs from it: which device runs the model.
   fp32 on the card. cuDNN's default lets fp32 convolutions run in TF32
   (about three decimal digits), while the JAX reference computes them in
   fp32; with TF32 on, the port would drift from the reference by ~1e-3.
+- ``pin_deterministic_kernels()`` makes cuDNN pick deterministic
+  algorithms only, with no autotuning, so that a training run replays bit
+  for bit on the same card (resume is exact).
 """
 
 from __future__ import annotations
@@ -44,3 +47,12 @@ def pin_fp32_precision() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+def pin_deterministic_kernels() -> None:
+    """cuDNN: deterministic algorithms only (its default may pick weight-
+    gradient algorithms that accumulate with atomics) and no benchmark-mode
+    autotuning, whose choice can differ between runs. Process wide;
+    idempotent; called by the trainer when it runs on the card."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False

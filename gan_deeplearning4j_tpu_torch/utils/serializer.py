@@ -1,5 +1,6 @@
 """Model checkpoints in the JAX package's format — counterpart of
-``gan_deeplearning4j_tpu/utils/serializer.py::write_model/read_model``.
+``gan_deeplearning4j_tpu/utils/serializer.py`` (``write_model``,
+``read_model`` and ``ModelSerializer.restore_train_state``).
 
 A checkpoint is one zip holding:
 
@@ -185,3 +186,21 @@ def _to_device(tree: Dict, device: torch.device) -> Dict:
         k: _to_device(v, device) if isinstance(v, dict) else leaf_to_tensor(v).to(device)
         for k, v in tree.items()
     }
+
+
+class ModelSerializer:
+    """DL4J-shaped static facade (``ModelSerializer.restore``)."""
+
+    @staticmethod
+    def restore_train_state(path: str, trainer, *, device: DeviceLike = None):
+        """A trainer-ready ``TrainState`` from a checkpoint (resume). A
+        checkpoint without updater state gets a fresh one; one with updater
+        state is checked against the trainer's graph like the params."""
+        from gan_deeplearning4j_tpu_torch.interop import train_state_from_numpy
+
+        graph, params, opt_state, step = read_model(path, device=device)
+        if opt_state is None:
+            opt_state = trainer.optimizer.init(params)
+        return train_state_from_numpy(
+            {"params": params, "opt_state": opt_state, "step": step}, device, graph=trainer.graph
+        )

@@ -146,9 +146,12 @@ def test_params_from_numpy_checks_keys_shapes_and_dtypes():
 
 
 def test_training_mode_and_unported_layers_raise():
-    gen = pt_models.build_generator()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gen.output(gen.init(device="cpu"), torch.zeros(2, 2), train=True)
+    # train=True runs now (tests/test_torch_train.py); a topology with a
+    # layer the port lacks still refuses to build, naming its ROADMAP item
+    topology = pt_models.build_generator().to_dict()
+    topology["nodes"][1]["layer"] = {"type": "DropoutLayer", "rate": 0.5}
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'Other families'"):
+        PtGraph.from_dict(topology)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt_layers.layer_from_dict({"type": "QuantDenseLayer", "n_out": 4})
     with pytest.raises(KeyError, match="unknown layer type"):

@@ -316,6 +316,13 @@ def test_importing_the_port_loads_no_jax():
         "import gan_deeplearning4j_tpu_torch.serving\n"
         "import gan_deeplearning4j_tpu_torch.serving.__main__\n"
         "import gan_deeplearning4j_tpu_torch.models\n"
+        "import gan_deeplearning4j_tpu_torch.__main__\n"
+        "import gan_deeplearning4j_tpu_torch.harness\n"
+        "import gan_deeplearning4j_tpu_torch.data\n"
+        "import gan_deeplearning4j_tpu_torch.eval\n"
+        "import gan_deeplearning4j_tpu_torch.optim\n"
+        "import gan_deeplearning4j_tpu_torch.parallel\n"
+        "import gan_deeplearning4j_tpu_torch.zoo\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'gan_deeplearning4j_tpu' or m.startswith('gan_deeplearning4j_tpu.')]\n"
         "assert not bad, bad\n"
