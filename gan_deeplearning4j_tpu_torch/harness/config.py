@@ -3,12 +3,12 @@
 hyperparameter block as one typed config, field for field with the same
 defaults, overridable from JSON and argparse.
 
-``validate()`` makes the JAX package's checks and also refuses, with
-``NotImplementedError`` naming the ROADMAP.md item that brings it, what
-the port does not run yet: ``distributed != "none"`` and
-``update_sharding`` ('Parallel training'), a bf16 ``compute_dtype`` or
-``param_dtype`` ('bf16 training'), ``conditioning="class"`` and families
-other than ``mnist`` ('Other families'), and ``prefetch > 0``
+``validate()`` makes the JAX package's checks (the WGAN-GP family's
+included) and also refuses, with ``NotImplementedError`` naming the
+ROADMAP.md item that brings it, what the port does not run yet:
+``distributed != "none"`` and ``update_sharding`` ('Parallel training'), a
+bf16 ``compute_dtype`` or ``param_dtype`` ('bf16 training'),
+``conditioning="class"`` ('Class conditioning') and ``prefetch > 0``
 ('Device-resident and prefetch iterators').
 
 ``use_accelerator`` (the reference's ``useGpu``) picks the device: True
@@ -136,7 +136,28 @@ class ExperimentConfig:
         dtypes = (_parse_dtype(self.compute_dtype), _parse_dtype(self.param_dtype))
         from gan_deeplearning4j_tpu_torch.models import registry
 
-        registry.get(self.model_family)  # raises on an unknown or unported family
+        family = registry.get(self.model_family)  # raises on an unknown family
+        if family.name == "wgan_gp":
+            if self.conditioning == "class":
+                raise ValueError(
+                    "conditioning='class' is a feature of the three-graph families; "
+                    "the WGAN-GP critic round is unconditional"
+                )
+            if self.n_critic < 1 or self.batch_size_train % self.n_critic:
+                raise ValueError(
+                    f"wgan_gp: batch_size_train {self.batch_size_train} must be "
+                    f"divisible by n_critic {self.n_critic}"
+                )
+            if self.distributed == "param_averaging":
+                raise ValueError(
+                    "wgan_gp supports distributed='pmean'; k-step parameter "
+                    "averaging is a reference-parity mode for the XENT families"
+                )
+            if self.update_sharding:
+                raise ValueError(
+                    "update_sharding is implemented for the GraphTrainer families; "
+                    "the WGAN-GP trainer keeps the replicated update"
+                )
         if self.distributed != "none" or self.update_sharding:
             raise NotImplementedError(
                 f"distributed={self.distributed!r} / update_sharding is not ported "
@@ -150,7 +171,7 @@ class ExperimentConfig:
         if self.conditioning == "class":
             raise NotImplementedError(
                 "conditioning='class' is not ported yet: ROADMAP.md queue 1, "
-                "'Other families'"
+                "'Class conditioning'"
             )
         if self.prefetch > 0:
             raise NotImplementedError(
@@ -175,7 +196,7 @@ class ExperimentConfig:
         ignores, made real)."""
         p = argparse.ArgumentParser(
             prog="gan_deeplearning4j_tpu_torch",
-            description="DCGAN-MNIST experiment (PyTorch port)",
+            description="GAN experiment, every model family (PyTorch port)",
         )
         p.add_argument("--config", type=str, default=None, help="JSON config file")
         for f in dataclasses.fields(ExperimentConfig):

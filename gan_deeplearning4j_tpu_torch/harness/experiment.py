@@ -12,7 +12,12 @@ fused program (``_build_fused_iteration``):
 3. dis → gan frozen tail (a rebind of the same tensors);
 4. the generator step through the frozen D on ``[z, ones]``;
 5. gan → gen (the sampler refresh), then dis → classifier features and
-   the classifier step on the real labelled batch.
+   the classifier step on the real labelled batch, in the families that
+   have a transfer classifier (``mnist``; ``tabular`` and ``image`` have
+   none, and their ``cv_loss`` is NaN).
+
+The WGAN-GP family has a loop of its own on the same surface
+(``harness/wgan_experiment.py``).
 
 The iteration runs eagerly: every op goes to PyTorch's kernels (cuDNN,
 cuBLAS, ATen) on the experiment's device. The losses stay on the device
@@ -51,7 +56,7 @@ import re
 import tempfile
 import time
 from collections import deque
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -61,7 +66,12 @@ from gan_deeplearning4j_tpu_torch.data import write_csv
 from gan_deeplearning4j_tpu_torch.harness.config import ExperimentConfig
 from gan_deeplearning4j_tpu_torch.models import registry
 from gan_deeplearning4j_tpu_torch.nn import ComputationGraph
-from gan_deeplearning4j_tpu_torch.nn.layers import ConvolutionLayer, DenseLayer
+from gan_deeplearning4j_tpu_torch.nn.layers import (
+    BatchNormalization,
+    ConvolutionLayer,
+    Deconvolution2D,
+    DenseLayer,
+)
 from gan_deeplearning4j_tpu_torch.parallel import GraphTrainer, TrainState
 from gan_deeplearning4j_tpu_torch.runtime.device import (
     pin_deterministic_kernels,
@@ -120,7 +130,8 @@ def flatten_states(states: Dict) -> Dict[str, object]:
     return out
 
 
-def state_divergence(a: Dict[str, object], b: Dict[str, object]) -> Dict[str, float]:
+def state_divergence(a: Dict[str, object], b: Dict[str, object],
+                     rounding_only: Sequence[str] = ()) -> Dict[str, float]:
     """How far two flat states (same keys, e.g. two ``flatten_states``) are
     apart: ``max_abs``, the largest elementwise difference, and
     ``max_leaf_rel``, the largest leafwise ``‖a−b‖₂ / max(‖b‖₂, 1e-5·√n)``
@@ -131,19 +142,45 @@ def state_divergence(a: Dict[str, object], b: Dict[str, object]) -> Dict[str, fl
     update difference of up to 2·lr, and a cache ``g²`` of such a sum carries
     a large relative rounding. ``max_leaf_rel`` reads a whole-leaf error,
     which a wrong rebind, label or learning rate would cause, apart from
-    those."""
+    those.
+
+    ``rounding_only`` names leaves whose exact gradient is zero (see
+    :func:`rounding_only_params`): what moves them is rounding, which Adam
+    at β1 = 0 turns into steps of up to ``lr`` of either sign, so two runs
+    disagree on the whole leaf. They are left out of both numbers above
+    and reported as ``rounding_only_max_abs``, which the update rule bounds
+    by 2·lr per step."""
     if sorted(a) != sorted(b):
         raise KeyError(f"states differ in keys: {sorted(set(a) ^ set(b))[:5]}")
-    max_abs = max_rel = 0.0
+    max_abs = max_rel = rounding_abs = 0.0
     for key in a:
         x = np.asarray(a[key].detach().cpu() if isinstance(a[key], torch.Tensor) else a[key], np.float64)
         y = np.asarray(b[key].detach().cpu() if isinstance(b[key], torch.Tensor) else b[key], np.float64)
         diff = np.abs(x - y)
-        if diff.size:
-            max_abs = max(max_abs, float(diff.max()))
-            floor = 1e-5 * np.sqrt(diff.size)
-            max_rel = max(max_rel, float(np.linalg.norm(diff) / max(np.linalg.norm(y), floor)))
-    return {"max_abs": max_abs, "max_leaf_rel": max_rel}
+        if not diff.size:
+            continue
+        if key in rounding_only:
+            rounding_abs = max(rounding_abs, float(diff.max()))
+            continue
+        max_abs = max(max_abs, float(diff.max()))
+        floor = 1e-5 * np.sqrt(diff.size)
+        max_rel = max(max_rel, float(np.linalg.norm(diff) / max(np.linalg.norm(y), floor)))
+    return {"max_abs": max_abs, "max_leaf_rel": max_rel, "rounding_only_max_abs": rounding_abs}
+
+
+def rounding_only_params(graph: ComputationGraph) -> List[str]:
+    """The biases (``"<layer>/b"``) of the dense and convolution layers
+    whose output goes straight into a BatchNormalization. In training mode
+    BatchNorm subtracts the batch mean, which cancels such a bias: its
+    exact gradient is zero, and what reaches it is rounding."""
+    by_name = {v.name: v for v in graph.vertices}
+    out = []
+    for v in graph.vertices:
+        src = by_name.get(v.inputs[0])
+        if (isinstance(v.layer, BatchNormalization) and src is not None
+                and isinstance(src.layer, (ConvolutionLayer, DenseLayer))):
+            out.append(f"{src.name}/b")
+    return out
 
 
 def _rebind(src: TrainState, dst: TrainState, mapping) -> TrainState:
@@ -155,12 +192,29 @@ def _rebind(src: TrainState, dst: TrainState, mapping) -> TrainState:
     )
 
 
+def experiment_device(cfg: ExperimentConfig) -> torch.device:
+    """The device ``config.use_accelerator`` asks for; on the card, fp32
+    runs with TF32 off and cuDNN restricted to deterministic algorithms."""
+    device = resolve_device(None if cfg.use_accelerator else "cpu")
+    if device.type == "cuda":
+        pin_fp32_precision()
+        pin_deterministic_kernels()
+    return device
+
+
 def forward_flops(graph: ComputationGraph, batch: int) -> int:
     """Multiply-add FLOPs (2 per MAC) of one forward pass of ``graph`` at
-    ``batch`` rows, counting its dense and convolution layers only."""
+    ``batch`` rows, counting its dense, convolution and transposed
+    convolution layers only. A transposed convolution scatters each input
+    pixel through the whole kernel, so it counts ``H_in·W_in·kh·kw·Cin·Cout``
+    MACs; counted by its output pixels it would read s² times too many."""
     total = 0
     for v in graph.vertices:
-        if isinstance(v.layer, ConvolutionLayer):
+        if isinstance(v.layer, Deconvolution2D):
+            kh, kw, cin, cout = v.layer.param_shapes(v.in_type)["W"]
+            ih, iw, _ = v.in_type.shape
+            total += 2 * batch * ih * iw * kh * kw * cin * cout
+        elif isinstance(v.layer, ConvolutionLayer):
             kh, kw, cin, cout = v.layer.param_shapes(v.in_type)["W"]
             oh, ow, _ = v.out_type.shape
             total += 2 * batch * oh * ow * kh * kw * cin * cout
@@ -180,30 +234,28 @@ class GanExperiment:
             )
         self.config = config.validate()
         cfg = config
-        self.device = resolve_device(None if cfg.use_accelerator else "cpu")
-        if self.device.type == "cuda":
-            pin_fp32_precision()
-            pin_deterministic_kernels()
-        dev = self.device
+        self.device = dev = experiment_device(cfg)
         self.family = registry.get(cfg.model_family)
         self.model_cfg = self.family.make_model_config(cfg)
         self.dis_to_gan, self.gan_to_gen = self.family.sync_maps(self.model_cfg)
 
-        # the three graphs + the transfer classifier; gen and gan are
-        # initialised separately, as in the reference
+        # the three graphs + the transfer classifier (mnist only); gen and
+        # gan are initialised separately, as in the reference
         self.dis = self.family.build_discriminator(self.model_cfg)
         self.gen = self.family.build_generator(self.model_cfg)
         self.gan = self.family.build_gan(self.model_cfg)
         dis_params = self.dis.init(device=dev)
-        self.cv, cv_params = self.family.build_transfer_classifier(
-            self.dis, dis_params, self.model_cfg
-        )
         self.dis_trainer = GraphTrainer(self.dis)
         self.gan_trainer = GraphTrainer(self.gan)
-        self.cv_trainer = GraphTrainer(self.cv)
         self.dis_state = self.dis_trainer.init_state(params=dis_params)
         self.gan_state = self.gan_trainer.init_state(device=dev)
-        self.cv_state = self.cv_trainer.init_state(params=cv_params)
+        self.cv = self.cv_trainer = self.cv_state = None
+        if self.family.build_transfer_classifier is not None:
+            self.cv, cv_params = self.family.build_transfer_classifier(
+                self.dis, dis_params, self.model_cfg
+            )
+            self.cv_trainer = GraphTrainer(self.cv)
+            self.cv_state = self.cv_trainer.init_state(params=cv_params)
         self.gen_params = self.gen.init(device=dev)
 
         # label-softening noise, sampled once like the reference (:404-406)
@@ -305,10 +357,13 @@ class GanExperiment:
         self.gen_params = ComputationGraph.copy_params(
             self.gan_state.params, self.gen_params, self.gan_to_gen
         )
-        self.cv_state = _rebind(self.dis_state, self.cv_state, self.family.dis_to_cv)
-        # (f) classifier step on the real labelled batch
-        with record_function("iteration.cv"):
-            self.cv_state, c = self.cv_trainer.train_step(self.cv_state, real_f, real_l)
+        if self.cv is None:
+            c = torch.full((), float("nan"), device=self.device)
+        else:
+            self.cv_state = _rebind(self.dis_state, self.cv_state, self.family.dis_to_cv)
+            # (f) classifier step on the real labelled batch
+            with record_function("iteration.cv"):
+                self.cv_state, c = self.cv_trainer.train_step(self.cv_state, real_f, real_l)
         return torch.stack([(d1 + d2) / 2.0, g, c])
 
     def train_iteration(self, real_features, real_labels) -> Dict:
@@ -328,18 +383,18 @@ class GanExperiment:
         return {"d_loss": rows[:, 0], "g_loss": rows[:, 1], "cv_loss": rows[:, 2]}
 
     def flops_per_iteration(self, batch_size: Optional[int] = None) -> int:
-        """FLOPs of the dense and convolution layers in one iteration,
-        from shapes: the sampler's forward pass, then forward, input-gradient
-        and weight-gradient passes (3× forward) of the two dis steps, the gan
-        step and the cv step. Every such layer needs its input gradient here
-        (a trainable BatchNorm sits in front of each graph's first conv or
+        """FLOPs of the dense and (transposed) convolution layers in one
+        iteration, from shapes: the sampler's forward pass, then forward,
+        input-gradient and weight-gradient passes (3× forward) of the two
+        dis steps, the gan step and the cv step (where the family has a
+        classifier). Every such layer needs its input gradient here (a
+        trainable BatchNorm sits in front of each graph's first conv or
         dense layer). Elementwise work is not counted."""
         b = batch_size or self.config.batch_size_train
-        return (
-            forward_flops(self.gen, b)
-            + 3 * (2 * forward_flops(self.dis, b) + forward_flops(self.gan, b)
-                   + forward_flops(self.cv, b))
-        )
+        steps = 2 * forward_flops(self.dis, b) + forward_flops(self.gan, b)
+        if self.cv is not None:
+            steps += forward_flops(self.cv, b)
+        return forward_flops(self.gen, b) + 3 * steps
 
     # -- exports ----------------------------------------------------------
     def export_manifold(self, index: int) -> str:
@@ -357,6 +412,10 @@ class GanExperiment:
     def export_predictions(self, test_iterator, index: int) -> str:
         """Batched test-set inference → ``{prefix}_test_predictions_{index}.csv``."""
         cfg = self.config
+        if self.cv is None:
+            raise ValueError(
+                f"family {self.family.name!r} has no transfer classifier to predict with"
+            )
         test_iterator.reset()
         chunks: List[np.ndarray] = []
         while test_iterator.has_next():
@@ -378,22 +437,35 @@ class GanExperiment:
     def digest_states(self) -> Dict:
         """Every trained state, by model name: what bit-exactness checks
         compare (``flatten_states`` flattens it)."""
-        return {"dis": self.dis_state, "gan": self.gan_state, "gen": self.gen_params,
-                "CV": self.cv_state}
+        states = {"dis": self.dis_state, "gan": self.gan_state, "gen": self.gen_params}
+        if self.cv is not None:
+            states["CV"] = self.cv_state
+        return states
+
+    def rounding_only_keys(self) -> List[str]:
+        """``flatten_states`` keys that ``state_divergence`` should report
+        apart (``rounding_only``): none here. The graphs have such biases
+        (``rounding_only_params``), but RmsProp adds its eps inside the
+        square root, so a rounding-sized gradient (≪ 1e-4) moves a param
+        by far less than ``lr``."""
+        return []
 
     def save_models(self, directory: Optional[str] = None) -> List[str]:
-        """All four models, with updater state, as the JAX package's zips
-        ``{prefix}_{dis,gan,gen,CV}_model.zip``."""
+        """Every model, with updater state, as the JAX package's zips
+        ``{prefix}_{dis,gan,gen,CV}_model.zip`` (no ``CV`` where the family
+        has no classifier)."""
         cfg = self.config
         directory = directory or cfg.output_dir
         os.makedirs(directory, exist_ok=True)
         out = []
-        for name, graph, state in (
+        models = [
             ("dis", self.dis, self.dis_state),
             ("gan", self.gan, self.gan_state),
             ("gen", self.gen, self.gen_params),
-            ("CV", self.cv, self.cv_state),
-        ):
+        ]
+        if self.cv is not None:
+            models.append(("CV", self.cv, self.cv_state))
+        for name, graph, state in models:
             path = os.path.join(directory, f"{cfg.file_prefix}_{name}_model.zip")
             write_model(path, graph, state, save_updater=True)
             out.append(path)
@@ -414,7 +486,8 @@ class GanExperiment:
         restore = ModelSerializer.restore_train_state
         self.dis_state = restore(f"{prefix}_dis_model.zip", self.dis_trainer, device=self.device)
         self.gan_state = restore(f"{prefix}_gan_model.zip", self.gan_trainer, device=self.device)
-        self.cv_state = restore(f"{prefix}_CV_model.zip", self.cv_trainer, device=self.device)
+        if self.cv is not None:
+            self.cv_state = restore(f"{prefix}_CV_model.zip", self.cv_trainer, device=self.device)
         _, self.gen_params, _, _ = read_model(
             f"{prefix}_gen_model.zip", load_updater=False, device=self.device
         )
@@ -422,11 +495,13 @@ class GanExperiment:
         return self.batch_counter
 
     def publish_for_serving(self, directory: Optional[str] = None, store=None) -> Dict:
-        """Publish the inference artifacts (the generator and the transfer
-        classifier, without updater state) and a ``serving.json`` manifest
-        key for key as the JAX package writes it, so either package's
-        ``ServingEngine.from_bundle`` loads the bundle. Every file lands by
-        temp file and rename."""
+        """Publish the inference artifacts (the generator and, where the
+        family has one, the transfer classifier, without updater state) and
+        a ``serving.json`` manifest key for key as the JAX package writes
+        it, so either package's ``ServingEngine.from_bundle`` loads the
+        bundle; a generator-only bundle has ``classifier`` and
+        ``feature_vertex`` null. Every file lands by temp file and
+        rename."""
         if store is not None:
             raise NotImplementedError(
                 f"publishing into a CheckpointStore is not ported yet: {_OPERATIONS_WAITS}"
@@ -435,16 +510,19 @@ class GanExperiment:
         directory = directory or os.path.join(cfg.output_dir, "serving")
         os.makedirs(directory, exist_ok=True)
         gen_name = f"{cfg.file_prefix}_gen_serving.zip"
-        cv_name = f"{cfg.file_prefix}_CV_serving.zip"
         write_model(os.path.join(directory, gen_name), self.gen, self.gen_params, save_updater=False)
-        write_model(os.path.join(directory, cv_name), self.cv, self.cv_state, save_updater=False)
+        cv_name = feature_vertex = None
+        if self.cv is not None:
+            cv_name = f"{cfg.file_prefix}_CV_serving.zip"
+            write_model(os.path.join(directory, cv_name), self.cv, self.cv_state, save_updater=False)
+            # the deepest dis-derived layer: the classifier's transfer features
+            feature_vertex = list(self.family.dis_to_cv.values())[-1]
         manifest = {
             "format_version": 1,
             "family": self.family.name,
             "generator": gen_name,
             "classifier": cv_name,
-            # the deepest dis-derived layer: the classifier's transfer features
-            "feature_vertex": list(self.family.dis_to_cv.values())[-1],
+            "feature_vertex": feature_vertex,
             "z_size": int(self.model_cfg.z_size),
             "num_features": int(cfg.num_features),
             "num_classes": int(cfg.num_classes),

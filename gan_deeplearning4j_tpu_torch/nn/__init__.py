@@ -8,8 +8,11 @@ from gan_deeplearning4j_tpu_torch.nn.layers import (
     ActivationLayer,
     BatchNormalization,
     ConvolutionLayer,
+    Deconvolution2D,
     DenseLayer,
+    DropoutLayer,
     Layer,
+    LossLayer,
     OutputLayer,
     SubsamplingLayer,
     Upsampling2D,
@@ -28,7 +31,10 @@ __all__ = [
     "ActivationLayer",
     "BatchNormalization",
     "ConvolutionLayer",
+    "Deconvolution2D",
     "DenseLayer",
+    "DropoutLayer",
+    "LossLayer",
     "OutputLayer",
     "SubsamplingLayer",
     "Upsampling2D",

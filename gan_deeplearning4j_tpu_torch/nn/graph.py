@@ -5,8 +5,9 @@
   override (DL4J's config inheritance) and the automatic boundary
   preprocessors from declared InputTypes;
 - ``ComputationGraph``: ``init``, ``apply`` (params in, outputs and the
-  BatchNorm running-stat updates out), ``output``, ``feed_forward``,
-  ``loss`` (output-layer losses + L2 on weights), ``summary``, the
+  BatchNorm running-stat updates out; an optional ``torch.Generator`` for
+  training-mode dropout), ``output``, ``feed_forward``, ``loss`` (the
+  losses of the output and loss layers + L2 on weights), ``summary``, the
   named-param protocol ``get_param``/``set_param``/``copy_params`` (the
   reference's weight sync), ``param_shapes``/``param_count`` and
   ``to_dict``/``from_dict`` over the same ``topology.json`` schema, so a
@@ -33,6 +34,7 @@ from gan_deeplearning4j_tpu_torch.nn.layers import (
     ConvolutionLayer,
     DenseLayer,
     Layer,
+    LossLayer,
     OutputLayer,
     SubsamplingLayer,
     Upsampling2D,
@@ -46,6 +48,7 @@ from gan_deeplearning4j_tpu_torch.nn.preprocessors import (
 from gan_deeplearning4j_tpu_torch.optim.updaters import RmsProp, UpdaterSpec, updater_from_dict
 from gan_deeplearning4j_tpu_torch.runtime.device import DeviceLike, resolve_device
 
+# Deconvolution2D subclasses ConvolutionLayer
 _CNN_LAYERS = (ConvolutionLayer, SubsamplingLayer, Upsampling2D)
 _FF_LAYERS = (DenseLayer,)  # OutputLayer subclasses DenseLayer
 
@@ -238,7 +241,7 @@ class ComputationGraph:
     def output_layers(self) -> List[VertexSpec]:
         return [
             v for v in self.vertices
-            if v.name in self.output_names and isinstance(v.layer, OutputLayer)
+            if v.name in self.output_names and isinstance(v.layer, (OutputLayer, LossLayer))
         ]
 
     # -- params -------------------------------------------------------------
@@ -274,8 +277,9 @@ class ComputationGraph:
         return params
 
     # -- forward ------------------------------------------------------------
-    def _traverse(self, params: Dict, inputs, *, train: bool):
-        """Shared forward walk: ``(activations by vertex, new_params)``."""
+    def _traverse(self, params: Dict, inputs, *, train: bool, generator=None):
+        """Shared forward walk: ``(activations by vertex, new_params)``.
+        Dropout layers draw their masks from ``generator`` in vertex order."""
         if not isinstance(inputs, dict):
             if len(self.input_names) != 1:
                 raise ValueError("graph has multiple inputs; pass a dict")
@@ -286,17 +290,19 @@ class ComputationGraph:
             x = acts[v.inputs[0]]
             if v.preprocessor is not None:
                 x = v.preprocessor(x)
-            y, updates = v.layer.apply(params.get(v.name, {}), x, train=train)
+            y, updates = v.layer.apply(params.get(v.name, {}), x, train=train, generator=generator)
             if updates:
                 new_params[v.name] = {**params[v.name], **updates}
             acts[v.name] = y
         return acts, new_params
 
-    def apply(self, params: Dict, inputs, *, train: bool = False):
+    def apply(self, params: Dict, inputs, *, train: bool = False, generator=None):
         """Feed-forward: ``(outputs by name, new_params)``. With
         ``train=True`` BatchNorm normalizes by the batch and ``new_params``
-        carries its updated running statistics; otherwise it is ``params``."""
-        acts, new_params = self._traverse(params, inputs, train=train)
+        carries its updated running statistics; otherwise it is ``params``.
+        ``generator`` feeds training-mode dropout (required when the graph
+        has a dropout layer and ``train=True``)."""
+        acts, new_params = self._traverse(params, inputs, train=train, generator=generator)
         return {o: acts[o] for o in self.output_names}, new_params
 
     def output(self, params: Dict, inputs, *, train: bool = False):
@@ -307,10 +313,10 @@ class ComputationGraph:
             return outs[self.output_names[0]]
         return outs
 
-    def feed_forward(self, params: Dict, inputs, *, train: bool = False):
+    def feed_forward(self, params: Dict, inputs, *, train: bool = False, generator=None):
         """Per-vertex activation map (DL4J ``ComputationGraph.feedForward``):
         ``{vertex name: activation}``, inputs included."""
-        return self._traverse(params, inputs, train=train)[0]
+        return self._traverse(params, inputs, train=train, generator=generator)[0]
 
     # -- loss ---------------------------------------------------------------
     def l2_penalty(self, params: Dict) -> torch.Tensor:
@@ -331,10 +337,10 @@ class ComputationGraph:
             total = torch.zeros((), device=None if leaf is None else leaf.device)
         return total
 
-    def loss(self, params: Dict, inputs, labels, *, train: bool = True):
-        """Total training loss: output-layer losses + the L2 penalty.
-        Returns ``(loss, (outputs, new_params))``."""
-        outs, new_params = self.apply(params, inputs, train=train)
+    def loss(self, params: Dict, inputs, labels, *, train: bool = True, generator=None):
+        """Total training loss: the losses of the output and loss layers +
+        the L2 penalty. Returns ``(loss, (outputs, new_params))``."""
+        outs, new_params = self.apply(params, inputs, train=train, generator=generator)
         if not isinstance(labels, dict):
             if len(self.output_names) != 1:
                 raise ValueError("graph has multiple outputs; pass labels as a dict")

@@ -1,7 +1,8 @@
 """Layer configs of the PyTorch port — counterpart of
-``gan_deeplearning4j_tpu/nn/layers.py``, for the layers the DCGAN-MNIST
-graphs run: Dense, Output, BatchNormalization, Convolution, Subsampling
-(max), Upsampling2D and Activation.
+``gan_deeplearning4j_tpu/nn/layers.py``: Dense, Output, Loss,
+BatchNormalization, Convolution, Deconvolution2D, Subsampling (max and
+average), Upsampling2D, Activation and Dropout. The int8
+``QuantDenseLayer`` waits for ROADMAP.md queue 1, 'Quantization'.
 
 Each layer is a frozen config dataclass with the same fields, and so the
 same ``to_dict`` schema, as its JAX counterpart:
@@ -12,9 +13,11 @@ same ``to_dict`` schema, as its JAX counterpart:
   params by ``(layer, name)``;
 - ``init(generator, in_type)``: a dict of CPU tensors drawn from an
   explicit ``torch.Generator``;
-- ``apply(params, x, train=False) -> (y, state_updates)``:
+- ``apply(params, x, train=False, generator=None) -> (y, state_updates)``:
   ``state_updates`` is a dict of "state"-role params rewritten by the
   training forward pass (BatchNorm's running statistics) or None;
+  ``generator`` is the ``torch.Generator`` that training-mode dropout
+  draws its masks from (the JAX package passes an rng key);
 - ``output_type(in_type)``, ``param_roles()`` (L2 applies to "weight"
   params only, and updaters skip "state").
 
@@ -67,7 +70,7 @@ class Layer:
                 out[name] = torch.zeros(shape, dtype=torch.float32)
         return out
 
-    def apply(self, params, x, *, train: bool = False):
+    def apply(self, params, x, *, train: bool = False, generator=None):
         raise NotImplementedError
 
     def output_type(self, in_type: InputType) -> InputType:
@@ -110,7 +113,7 @@ class DenseLayer(Layer):
     def param_shapes(self, in_type):
         return {"W": (self._n_in(in_type), self.n_out), "b": (self.n_out,)}
 
-    def apply(self, params, x, *, train: bool = False):
+    def apply(self, params, x, *, train: bool = False, generator=None):
         return self._act(linear_ops.dense(x, params["W"], params["b"])), None
 
     def output_type(self, in_type):
@@ -129,6 +132,23 @@ class OutputLayer(DenseLayer):
 
     def loss_fn(self, probs, labels):
         return loss_ops.get(self.loss)(probs, labels)
+
+
+@dataclasses.dataclass(frozen=True)
+class LossLayer(Layer):
+    """Parameterless loss attachment: passes its input through the
+    activation and binds a loss."""
+
+    loss: str = "mse"
+
+    def apply(self, params, x, *, train: bool = False, generator=None):
+        return self._act(x), None
+
+    def output_type(self, in_type):
+        return in_type
+
+    def loss_fn(self, preds, labels):
+        return loss_ops.get(self.loss)(preds, labels)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,7 +177,7 @@ class BatchNormalization(Layer):
             "var": torch.ones(n),
         }
 
-    def apply(self, params, x, *, train: bool = False):
+    def apply(self, params, x, *, train: bool = False, generator=None):
         if train:
             y, new_mean, new_var = norm_ops.batch_norm_train(
                 x, params["gamma"], params["beta"], params["mean"], params["var"],
@@ -194,7 +214,7 @@ class ConvolutionLayer(Layer):
         kh, kw = _pair(self.kernel)
         return {"W": (kh, kw, self._n_in(in_type), self.n_out), "b": (self.n_out,)}
 
-    def apply(self, params, x, *, train: bool = False):
+    def apply(self, params, x, *, train: bool = False, generator=None):
         y = conv_ops.conv2d(x, params["W"], params["b"], stride=self.stride, padding=self.padding)
         return self._act(y), None
 
@@ -214,21 +234,45 @@ class ConvolutionLayer(Layer):
 
 
 @dataclasses.dataclass(frozen=True)
+class Deconvolution2D(ConvolutionLayer):
+    """Transposed convolution (DL4J Deconvolution2D). Kernel stored HWIO,
+    ``(kh, kw, n_in, n_out)``, as the JAX package stores it; output size
+    ``(in - 1)·s - 2p + k``."""
+
+    def apply(self, params, x, *, train: bool = False, generator=None):
+        y = conv_ops.conv2d_transpose(
+            x, params["W"], params["b"], stride=self.stride, padding=self.padding
+        )
+        return self._act(y), None
+
+    def output_type(self, in_type):
+        h, w, _ = in_type.shape
+        kh, kw = _pair(self.kernel)
+        sh, sw = _pair(self.stride)
+        ph, pw = _pair(self.padding)
+        return InputType.convolutional(
+            (h - 1) * sh - 2 * ph + kh,
+            (w - 1) * sw - 2 * pw + kw,
+            self.n_out,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
 class SubsamplingLayer(Layer):
-    """Pooling (DL4J SubsamplingLayer). MAX only for now; AVG waits for
-    the slice that needs it (ROADMAP.md queue 1, "Other families")."""
+    """Pooling (DL4J SubsamplingLayer), ``pool`` "max" or "avg"."""
 
     pool: str = "max"
     kernel: IntPair = 2
     stride: IntPair = 2
     padding: IntPair = 0
 
-    def apply(self, params, x, *, train: bool = False):
-        if self.pool != "max":
-            raise NotImplementedError(
-                f"{self.pool!r} pooling waits for ROADMAP.md queue 1, 'Other families'"
-            )
-        y = conv_ops.max_pool2d(x, kernel=self.kernel, stride=self.stride, padding=self.padding)
+    def apply(self, params, x, *, train: bool = False, generator=None):
+        if self.pool == "max":
+            y = conv_ops.max_pool2d(x, kernel=self.kernel, stride=self.stride, padding=self.padding)
+        elif self.pool == "avg":
+            y = conv_ops.avg_pool2d(x, kernel=self.kernel, stride=self.stride, padding=self.padding)
+        else:
+            raise ValueError(f"unknown pool type {self.pool!r}")
         return self._act(y), None
 
     def output_type(self, in_type):
@@ -249,7 +293,7 @@ class Upsampling2D(Layer):
 
     size: IntPair = 2
 
-    def apply(self, params, x, *, train: bool = False):
+    def apply(self, params, x, *, train: bool = False, generator=None):
         return conv_ops.upsample2d(x, scale=self.size), None
 
     def output_type(self, in_type):
@@ -262,8 +306,32 @@ class Upsampling2D(Layer):
 class ActivationLayer(Layer):
     """Standalone activation."""
 
-    def apply(self, params, x, *, train: bool = False):
+    def apply(self, params, x, *, train: bool = False, generator=None):
         return self._act(x), None
+
+    def output_type(self, in_type):
+        return in_type
+
+
+@dataclasses.dataclass(frozen=True)
+class DropoutLayer(Layer):
+    """Inverted dropout, in training mode only: each element is kept with
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``. The mask is
+    drawn on the generator's device from the ``torch.Generator`` the caller
+    passes; training mode without one raises, as the JAX package raises
+    without an rng key."""
+
+    rate: float = 0.5
+
+    def apply(self, params, x, *, train: bool = False, generator=None):
+        if not train or self.rate <= 0.0:
+            return x, None
+        if generator is None:
+            raise ValueError("DropoutLayer needs a torch.Generator when train=True")
+        keep = 1.0 - self.rate
+        draw = torch.rand(x.shape, generator=generator, device=generator.device)
+        mask = (draw < keep).to(x.device)
+        return torch.where(mask, x / keep, torch.zeros_like(x)), None
 
     def output_type(self, in_type):
         return in_type
@@ -274,20 +342,20 @@ _LAYER_CLASSES = {
     for c in (
         DenseLayer,
         OutputLayer,
+        LossLayer,
         BatchNormalization,
         ConvolutionLayer,
+        Deconvolution2D,
         SubsamplingLayer,
         Upsampling2D,
         ActivationLayer,
+        DropoutLayer,
     )
 }
 
 #: layer types of the JAX package that the port does not run yet, and the
 #: ROADMAP.md queue that brings each
 _NOT_YET_PORTED = {
-    "LossLayer": "queue 1, 'Other families' (WGAN-GP critics)",
-    "Deconvolution2D": "queue 1, 'Other families' (dcgan_image)",
-    "DropoutLayer": "queue 1, 'Other families' (the wider layer zoo)",
     "QuantDenseLayer": "queue 1, 'Quantization', and queue 2 (quant_dense)",
 }
 

@@ -1,14 +1,13 @@
-"""Convolution, max pooling and nearest upsampling over NHWC tensors —
-counterpart of ``gan_deeplearning4j_tpu/ops/conv.py``.
+"""Convolution, transposed convolution, max and average pooling and nearest
+upsampling over NHWC tensors — counterpart of
+``gan_deeplearning4j_tpu/ops/conv.py``.
 
 The public functions keep the JAX package's layouts: NHWC activations and
 HWIO kernels. Inside, ``x.permute(0, 3, 1, 2)`` is an NCHW view over
 channels-last memory, which cuDNN takes without a copy, and
 ``w.permute(3, 2, 0, 1)`` is the OIHW kernel. Output sizes follow DL4J's
-``ConvolutionMode.Truncate``: ``floor((in + 2p - k) / s) + 1``.
-
-``conv2d_transpose`` and ``avg_pool2d`` wait for the slice that needs them
-(ROADMAP.md queue 1, "Other families").
+``ConvolutionMode.Truncate``: ``floor((in + 2p - k) / s) + 1``; a
+transposed convolution inverts it: ``(in - 1)·s - 2p + k``.
 """
 
 from __future__ import annotations
@@ -47,6 +46,25 @@ def conv2d(x, w, b=None, *, stride: IntPair = 1, padding: IntPair = 0):
     return y
 
 
+def conv2d_transpose(x, w, b=None, *, stride: IntPair = 1, padding: IntPair = 0):
+    """Transposed convolution (DL4J Deconvolution2D), NHWC input, HWIO kernel
+    ``(kh, kw, in, out)``: the JAX package's ``lax.conv_transpose`` without
+    ``transpose_kernel``, at padding ``k - 1 - p``. That op correlates the
+    stride-dilated input with the kernel as stored, while
+    ``F.conv_transpose2d`` is the gradient of a correlation and so applies
+    the kernel flipped in space: the kernel goes in flipped back, as
+    ``(in, out, kh, kw)``."""
+    y = F.conv_transpose2d(
+        x.permute(0, 3, 1, 2),
+        w.flip(0, 1).permute(2, 3, 0, 1),
+        stride=_pair(stride),
+        padding=_pair(padding),
+    ).permute(0, 2, 3, 1)
+    if b is not None:
+        y = y + b
+    return y
+
+
 def max_pool2d(x, *, kernel: IntPair, stride: IntPair, padding: IntPair = 0):
     """Max pooling over NHWC; padded cells are -inf, so they never win."""
     ph, pw = _pair(padding)
@@ -54,6 +72,20 @@ def max_pool2d(x, *, kernel: IntPair, stride: IntPair, padding: IntPair = 0):
     if ph or pw:
         y = F.pad(y, (pw, pw, ph, ph), value=float("-inf"))
     y = F.max_pool2d(y, kernel_size=_pair(kernel), stride=_pair(stride))
+    return y.permute(0, 2, 3, 1)
+
+
+def avg_pool2d(x, *, kernel: IntPair, stride: IntPair, padding: IntPair = 0):
+    """Average pooling over NHWC; padded cells are left out of the divisor,
+    as the JAX package divides by the count of real cells in each window
+    (``count_include_pad=False``, where torch's default counts them)."""
+    y = F.avg_pool2d(
+        x.permute(0, 3, 1, 2),
+        kernel_size=_pair(kernel),
+        stride=_pair(stride),
+        padding=_pair(padding),
+        count_include_pad=False,
+    )
     return y.permute(0, 2, 3, 1)
 
 

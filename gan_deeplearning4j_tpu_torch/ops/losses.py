@@ -11,9 +11,9 @@ The clip is ``minimum(hi, maximum(lo, p))``, as ``jnp.clip`` computes it,
 so that the gradient at a probability exactly on a bound is split as in
 the reference (``torch.clamp`` would pass all of it).
 
-``wasserstein`` (a loss name a topology may carry) raises until the
-WGAN-GP family comes, with ``gradient_penalty`` (ROADMAP.md queue 1,
-'Other families').
+``wasserstein`` is the WGAN critic's score loss; ``gradient_penalty`` is
+WGAN-GP's penalty, a gradient of the critic's input gradient, which
+``torch.autograd.grad(..., create_graph=True)`` differentiates again.
 """
 
 from __future__ import annotations
@@ -21,9 +21,6 @@ from __future__ import annotations
 import torch
 
 XENT_CLIP_EPS = 1e-5
-
-_WGAN_WAITS = "the WGAN-GP losses are not ported yet: ROADMAP.md queue 1, 'Other families'"
-
 
 def _clip(p, eps: float):
     lo = torch.full((), eps, dtype=p.dtype, device=p.device)
@@ -56,7 +53,32 @@ def mse(preds, labels):
 
 
 def wasserstein(critic_scores, labels):
-    raise NotImplementedError(_WGAN_WAITS)
+    """Wasserstein critic loss: labels are +1 (real) and -1 (fake), so this
+    minimizes -E[D(real)] + E[D(fake)]."""
+    return -torch.mean(critic_scores * labels)
+
+
+def gradient_penalty(critic_fn, real, fake, epsilon, *, target: float = 1.0):
+    """WGAN-GP penalty E[(‖∇_x D(x̂)‖₂ − target)²] at x̂ = ε·real + (1−ε)·fake.
+
+    ``critic_fn`` maps a batch to per-example scores; ``epsilon`` has shape
+    ``(B, 1, ...)`` and is drawn by the caller (the JAX package draws it
+    inside, from a key the caller passes). The input gradient is taken with
+    ``create_graph=True``, so the penalty is differentiable in the critic's
+    params. The 1e-12 sits inside the square root, as in the reference, so
+    the norm's derivative at a zero gradient is 0, not 0/0."""
+    with torch.enable_grad():
+        x_hat = epsilon * real + (1.0 - epsilon) * fake
+        if not x_hat.requires_grad:
+            x_hat.requires_grad_(True)
+        scores = torch.sum(critic_fn(x_hat))
+        grads = None
+        if scores.requires_grad:
+            (grads,) = torch.autograd.grad(scores, x_hat, create_graph=True, allow_unused=True)
+        if grads is None:  # a critic that does not read its input
+            grads = torch.zeros_like(x_hat)
+        norms = torch.sqrt(torch.sum(grads ** 2, dim=tuple(range(1, grads.ndim))) + 1e-12)
+        return torch.mean((norms - target) ** 2)
 
 
 _REGISTRY = {

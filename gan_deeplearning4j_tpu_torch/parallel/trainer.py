@@ -51,6 +51,33 @@ def make_train_state(graph, optimizer: GraphOptimizer, seed=None, params=None,
     return TrainState(params=params, opt_state=optimizer.init(params), step=0)
 
 
+def grad_leaves(optimizer: GraphOptimizer, params: Dict):
+    """``(params, keys, leaves)``: a copy of ``params`` whose trainable
+    leaves are detached tensors with ``requires_grad`` set, their
+    ``(layer, param)`` keys and the leaves themselves, in the optimizer's
+    order. The caller's tensors are not touched."""
+    keys = optimizer.trainable_keys(params)
+    out = {layer: dict(lp) for layer, lp in params.items()}
+    leaves = []
+    for layer, pname in keys:
+        leaf = out[layer][pname].detach().requires_grad_(True)
+        out[layer][pname] = leaf
+        leaves.append(leaf)
+    return out, keys, leaves
+
+
+def grads_by_layer(keys, flat) -> Dict:
+    """``{layer: {param: grad}}`` from ``autograd.grad``'s flat tuple."""
+    grads: Dict = {}
+    for (layer, pname), g in zip(keys, flat):
+        grads.setdefault(layer, {})[pname] = g
+    return grads
+
+
+def detach_params(params: Dict) -> Dict:
+    return {layer: {n: t.detach() for n, t in lp.items()} for layer, lp in params.items()}
+
+
 class GraphTrainer:
     """Single-device trainer for one ComputationGraph. ``mesh`` and
     ``shard_updates`` belong to the data-parallel trainers, which are not
@@ -72,22 +99,11 @@ class GraphTrainer:
                    lr_scale: Optional[float] = None) -> Tuple[TrainState, torch.Tensor]:
         """One optimizer step on one minibatch: ``(new_state, loss)``, the
         loss a device scalar (no host read)."""
-        keys = self.optimizer.trainable_keys(state.params)
-        params = {layer: dict(leaves) for layer, leaves in state.params.items()}
-        leaves = []
-        for layer, pname in keys:
-            leaf = params[layer][pname].detach().requires_grad_(True)
-            params[layer][pname] = leaf
-            leaves.append(leaf)
+        params, keys, leaves = grad_leaves(self.optimizer, state.params)
         with torch.enable_grad(), record_function("step.grad"):
             loss, (_, new_params) = self.graph.loss(params, features, labels, train=True)
-            flat = torch.autograd.grad(loss, leaves)
-        grads: Dict = {}
-        for (layer, pname), g in zip(keys, flat):
-            grads.setdefault(layer, {})[pname] = g
-        new_params = {
-            layer: {n: t.detach() for n, t in lp.items()} for layer, lp in new_params.items()
-        }
+            grads = grads_by_layer(keys, torch.autograd.grad(loss, leaves))
+        new_params = detach_params(new_params)
         with record_function("step.update"):
             params, opt_state = self.optimizer.step(new_params, grads, state.opt_state, lr_scale=lr_scale)
         return TrainState(params, opt_state, state.step + 1), loss.detach()

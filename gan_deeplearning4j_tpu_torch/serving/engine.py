@@ -28,12 +28,13 @@ bucket of the ladder, so the device only ever sees bucket shapes.
 - **Numerics.** fp32 bundles run with TF32 off (``pin_fp32_precision``).
 
 Not yet ported (ROADMAP.md queue 1): bf16 and int8 bundles
-("Quantization"); conditional zoo bundles, more than one replica and the
-mesh bulk lane, CUDA-graph capture, the shared staging pool of the mux
-plane ("Serving, the rest"). A bundle that needs one of them is refused
-at load.
+("Quantization"); conditional zoo bundles ("Class conditioning"); more
+than one replica and the mesh bulk lane, CUDA-graph capture, the shared
+staging pool of the mux plane ("Serving, the rest"). A bundle that needs
+one of them is refused at load.
 
-Request kinds:
+Request kinds (a generator-only bundle, as the tabular, image and WGAN-GP
+families publish, serves ``sample`` alone):
 
 - ``sample``:   z (n, z_size)        -> generator images (n, num_features)
 - ``classify``: x (n, num_features)  -> class probabilities (n, num_classes)
@@ -75,7 +76,7 @@ def _refuse_unported(precision: Optional[str], scenario: Optional[dict]) -> None
     if scenario and scenario.get("conditioning") == "class":
         raise NotImplementedError(
             "conditional zoo bundles (sample?class=k) are not ported yet: "
-            "ROADMAP.md queue 1, 'Serving, the rest'"
+            "ROADMAP.md queue 1, 'Class conditioning'"
         )
 
 

@@ -5,8 +5,9 @@
 the ``"zoo"`` key of ``serving.json``; the serving engines of both
 packages read it to decide whether ``sample?class=k`` is legal. The fields,
 their validation and ``scenario_from_config`` are the JAX package's, so
-the block is key for key the same. The dataset loaders and the rest of the
-zoo wait for ROADMAP.md queue 1, 'Other families'.
+the block is key for key the same. The dataset loaders, the streaming
+input and class conditioning wait for ROADMAP.md queue 1, 'Class
+conditioning'.
 """
 
 from __future__ import annotations
@@ -71,22 +72,28 @@ class ScenarioManifest:
 
 def scenario_from_config(cfg) -> Optional[ScenarioManifest]:
     """The scenario a config trains, or None when the config falls outside
-    the zoo's axes (a family the port lacks, or a shape that is not its
-    dataset's native one): such a bundle is published without a zoo block."""
+    the zoo's axes (the tabular family, an unknown family, or a shape that
+    is not its dataset's native one): such a bundle is published without a
+    zoo block. ``wgan_gp`` is architecture "wgan_gp"; ``mnist`` and
+    ``image`` are "dcgan"."""
     from gan_deeplearning4j_tpu_torch.models import registry
 
     try:
         family = registry.get(cfg.model_family).name
-    except (KeyError, NotImplementedError):
+    except KeyError:
         return None
-    if family != "mnist":
+    if family == "wgan_gp":
+        architecture = "wgan_gp"
+    elif family in ("mnist", "image"):
+        architecture = "dcgan"
+    else:
         return None
     dataset = getattr(cfg, "dataset", "mnist")
     if (cfg.height, cfg.width, cfg.channels) != DATASET_SHAPES.get(dataset):
         return None
     try:
         return ScenarioManifest(
-            architecture="dcgan",
+            architecture=architecture,
             conditioning=getattr(cfg, "conditioning", "none"),
             dataset=dataset,
             resolution=DATASET_SHAPES[dataset][0],

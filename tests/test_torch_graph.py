@@ -146,10 +146,14 @@ def test_params_from_numpy_checks_keys_shapes_and_dtypes():
 
 
 def test_training_mode_and_unported_layers_raise():
-    # train=True runs now (tests/test_torch_train.py); a topology with a
-    # layer the port lacks still refuses to build, naming its ROADMAP item
+    # train=True runs now (tests/test_torch_train.py), and a dropout layer
+    # builds (tests/test_torch_family_ops.py); a topology with a layer or a
+    # vertex the port lacks still refuses to build, naming its ROADMAP item
     topology = pt_models.build_generator().to_dict()
     topology["nodes"][1]["layer"] = {"type": "DropoutLayer", "rate": 0.5}
+    assert isinstance(PtGraph.from_dict(topology).vertices[1].layer, pt_layers.DropoutLayer)
+    topology["nodes"][1] = {"name": "merge", "inputs": ["gen_batch_1"],
+                            "vertex": {"type": "MergeVertex"}}
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'Other families'"):
         PtGraph.from_dict(topology)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -318,6 +318,10 @@ def test_importing_the_port_loads_no_jax():
         "import gan_deeplearning4j_tpu_torch.models\n"
         "import gan_deeplearning4j_tpu_torch.__main__\n"
         "import gan_deeplearning4j_tpu_torch.harness\n"
+        "import gan_deeplearning4j_tpu_torch.harness.wgan_experiment\n"
+        "import gan_deeplearning4j_tpu_torch.models.dcgan_image\n"
+        "import gan_deeplearning4j_tpu_torch.models.mlp_gan\n"
+        "import gan_deeplearning4j_tpu_torch.models.wgan_gp\n"
         "import gan_deeplearning4j_tpu_torch.data\n"
         "import gan_deeplearning4j_tpu_torch.eval\n"
         "import gan_deeplearning4j_tpu_torch.optim\n"

@@ -453,8 +453,9 @@ def test_cli_trains_on_the_cpu_only_when_asked(tmp_path, capsys):
     (dict(distributed="pmean", update_sharding=True), "Parallel training"),
     (dict(compute_dtype="bf16"), "bf16 training"),
     (dict(param_dtype="bf16"), "bf16 training"),
-    (dict(conditioning="class"), "Other families"),
-    (dict(model_family="image", height=32, width=32, channels=3, num_features=3072), "Other families"),
+    (dict(conditioning="class"), "Class conditioning"),
+    (dict(model_family="image", height=32, width=32, channels=3, num_features=3072,
+          conditioning="class"), "Class conditioning"),
     (dict(prefetch=2), "Device-resident and prefetch iterators"),
 ])
 def test_validate_refuses_what_the_port_lacks(overrides, item):

@@ -122,9 +122,8 @@ def test_binary_xent_on_a_1d_output_and_unported_losses():
     p = np.array([0.2, 0.7, 1.0], np.float32)
     y = np.array([1.0, 0.0, 1.0], np.float32)
     _close(pt_losses.binary_xent(_t(p), _t(y)), jax_losses.binary_xent(p, y))
-    for name in ("wasserstein",):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'Other families'"):
-            pt_losses.get(name)(_t(p), _t(y))
+    # the WGAN-GP loss runs now (tests/test_torch_family_ops.py)
+    _close(pt_losses.get("wasserstein")(_t(p), _t(2 * y - 1)), jax_losses.wasserstein(p, 2 * y - 1))
     with pytest.raises(KeyError, match="known"):
         pt_losses.get("bogus")
 
