@@ -63,6 +63,25 @@ g. ``run()`` of 4 iterations, ``publish_for_serving`` (a generator-only
 h. timing as in (d), at the JAX bench's batches: tabular 256, ``cifar10``
    64, ``celeba64`` 64 and ``wgan_gp`` 320 (top 5 kernels, no stage split).
 
+Then bf16, as the JAX package runs it (``compute_dtype="bf16"``: dense and
+convolution products in bf16 with fp32 accumulation, params fp32;
+``param_dtype="bf16"``: params and updater state stored in bf16 too):
+
+i. card vs CPU, one iteration from the same init and draws, every family
+   under mixed precision at (a)'s and (e)'s batches, held to stated bf16
+   bounds (``BF16_ITER_BOUNDS``, ``BF16_WGAN_BOUNDS``);
+j. bit-exact resume in bf16: MNIST b200 and ``cifar10`` b64 mixed, MNIST
+   b200 with bf16 storage; an op that ``use_deterministic_algorithms``
+   flags fails it;
+k. a bf16-storage MNIST run published and served on the card (its bf16
+   params computed in fp32) against the trainer; ``build_bf16_variant`` of
+   the serving bundle served on the card against the fp32 bundle for every
+   kind and n, and its resident param bytes halved;
+l. timing as in (h) under mixed precision: MNIST b200, tabular b256 and
+   b4096, ``cifar10`` b64, ``celeba64`` b64, ``wgan_gp`` b320, with copy
+   (cast) kernels counted and the roofline share against the dense bf16
+   tensor-core peak (989 TFLOP/s).
+
 Every number is printed beside the card's name and power limit. The JAX
 package has no Pallas kernel, so the port has no hand-written kernel; the
 ``kernels`` line says so. The last line is
@@ -95,6 +114,8 @@ TIMED_RUNS = 50
 # the one-iteration tolerance of tests/test_torch_train.py
 ITER_LOSS_RTOL, ITER_LEAF_REL = 1e-4, 5e-3
 FP32_FLOP_PER_S = 67e12
+# NVIDIA's H100 SXM data sheet, dense bf16 tensor-core rate (no sparsity)
+BF16_FLOP_PER_S = 989e12
 
 
 def _card() -> str:
@@ -324,25 +345,27 @@ def _phase_card_vs_cpu(x, y, card: str) -> list:
     return rows
 
 
-def _phase_resume(x, y, directory: str, card: str) -> dict:
+def _resume_check(make, batches, directory: str) -> dict:
+    """4 iterations of ``make()`` against 2 + ``save_models`` + ``load_models``
+    into a fresh experiment + 2, under ``use_deterministic_algorithms``
+    (warn only): the leaves that differ (dtype or bits) and the ops it
+    flagged meanwhile."""
     import warnings
 
-    from gan_deeplearning4j_tpu_torch.harness import GanExperiment
     from gan_deeplearning4j_tpu_torch.harness.experiment import flatten_states
 
-    batches = [(x[i * 200:(i + 1) * 200], y[i * 200:(i + 1) * 200]) for i in range(4)]
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            straight = GanExperiment(_config())
+            straight = make()
             for xb, yb in batches:
                 straight.train_iteration(xb, yb)
-            first = GanExperiment(_config())
+            first = make()
             for xb, yb in batches[:2]:
                 first.train_iteration(xb, yb)
             first.save_models(directory)
-            resumed = GanExperiment(_config())
+            resumed = make()
             if resumed.load_models(directory) != 2:
                 raise AssertionError("load_models did not restore iteration 2")
             for xb, yb in batches[2:]:
@@ -350,14 +373,27 @@ def _phase_resume(x, y, directory: str, card: str) -> dict:
     finally:
         torch.use_deterministic_algorithms(False)
     a, b = flatten_states(straight.digest_states()), flatten_states(resumed.digest_states())
-    differ = [k for k in a if not (torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
-                                   else a[k] == b[k])]
-    if differ:
-        raise AssertionError(f"resume is not bit-exact on the card: {differ[:5]}")
+    differ = [k for k in a if not (a[k].dtype == b[k].dtype and torch.equal(a[k], b[k])
+                                   if isinstance(a[k], torch.Tensor) else a[k] == b[k])]
     flagged = sorted({str(w.message).split("\n")[0][:160] for w in caught
                       if "deterministic" in str(w.message)})
-    row = {"phase": "train_resume", "batch": 200, "bit_exact": True, "leaves": len(a),
-           "nondeterministic_ops_flagged": flagged, "card": card}
+    return {"bit_exact": not differ, "leaves": len(a), "differing_leaves": differ[:5],
+            "nondeterministic_ops_flagged": flagged}
+
+
+def _mnist_batches(x, y, batch: int, count: int) -> list:
+    n = x.shape[0] // batch
+    return [(x[(i % n) * batch:(i % n + 1) * batch], y[(i % n) * batch:(i % n + 1) * batch])
+            for i in range(count)]
+
+
+def _phase_resume(x, y, directory: str, card: str) -> dict:
+    from gan_deeplearning4j_tpu_torch.harness import GanExperiment
+
+    checked = _resume_check(lambda: GanExperiment(_config()), _mnist_batches(x, y, 200, 4), directory)
+    if not checked["bit_exact"]:
+        raise AssertionError(f"resume is not bit-exact on the card: {checked['differing_leaves']}")
+    row = {"phase": "train_resume", "batch": 200, **checked, "card": card}
     print(json.dumps(row))
     return row
 
@@ -399,13 +435,14 @@ def _phase_run_and_publish(make_train, make_test, directory: str, card: str) -> 
     return row
 
 
-def _measure_iterations(exp, batches, batch: int, top_n: int) -> dict:
+def _measure_iterations(exp, batches, batch: int, top_n: int, peak=("fp32", FP32_FLOP_PER_S)) -> dict:
     """Steady-state cost of ``exp.train_iteration`` over ``batches`` (30
     ``(x, y)`` pairs): 5 warm iterations, the median of 20 by the host clock
     (with a synchronize) and by CUDA events, peak memory, then a
     ``torch.profiler`` window of 5 iterations tracing the card only
-    (device-busy share, kernels per iteration, the ``top_n`` kernels), and
-    the fp32 bound of the iteration's FLOPs from shapes at 67 TFLOP/s."""
+    (device-busy share, kernels per iteration, of which copy kernels (the
+    dtype casts among them), the ``top_n`` kernels), and the bound of the
+    iteration's FLOPs from shapes at the ``peak`` rate (fp32: 67 TFLOP/s)."""
     from gan_deeplearning4j_tpu_torch.serving.profile import _union_us
 
     for xb, yb in batches[:5]:
@@ -431,7 +468,7 @@ def _measure_iterations(exp, batches, batch: int, top_n: int) -> dict:
             exp.train_iteration(xb, yb)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans, by_name, launches = [], {}, 0
+    spans, by_name, launches, copies = [], {}, 0, 0
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -439,11 +476,12 @@ def _measure_iterations(exp, batches, batch: int, top_n: int) -> dict:
         spans.append(span)
         if not (ev.name.startswith("Memcpy") or ev.name.startswith("Memset")):
             launches += 1
+            copies += "copy" in ev.name
             by_name[ev.name] = by_name.get(ev.name, 0.0) + span[1] - span[0]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
     flops = exp.flops_per_iteration(batch)
     median_host, median_event = statistics.median(host_ms), statistics.median(event_ms)
-    bound_ms = flops / FP32_FLOP_PER_S * 1e3
+    bound_ms = flops / peak[1] * 1e3
     return {"batch": batch, "iterations_timed": 20,
             "iteration_ms_host_median": median_host,
             "iteration_ms_event_median": median_event,
@@ -452,8 +490,9 @@ def _measure_iterations(exp, batches, batch: int, top_n: int) -> dict:
             "profiled_iterations": 5,
             "device_busy_share": _union_us(spans) / wall_us,
             "kernels_per_iteration": launches / 5,
+            "copy_kernels_per_iteration": copies / 5,
             "top_kernels": [{"name": k[:90], "ms_per_iteration": us / 5 / 1e3} for k, us in top],
-            "flops_per_iteration": flops, "fp32_bound_ms": bound_ms,
+            "flops_per_iteration": flops, f"{peak[0]}_bound_ms": bound_ms,
             "roofline_share": bound_ms / median_event}
 
 
@@ -461,8 +500,7 @@ def _phase_timing(x, y, card: str) -> dict:
     from gan_deeplearning4j_tpu_torch.harness import GanExperiment
 
     exp = GanExperiment(_config())
-    n = x.shape[0] // 200
-    batches = [(x[(i % n) * 200:(i % n + 1) * 200], y[(i % n) * 200:(i % n + 1) * 200]) for i in range(30)]
+    batches = _mnist_batches(x, y, 200, 30)
     measured = _measure_iterations(exp, batches, 200, top_n=10)
     measured["images_per_s"] = measured.pop("rows_per_s")
     # a second window with host activity: the iteration's stages
@@ -534,12 +572,16 @@ def _leaf_errors(a: dict, b: dict, rounding_only) -> dict:
 
 def _wgan_first_step_grads(exp, xb) -> tuple:
     """Loss and gradients of the first critic step and of a generator step,
-    both at the experiment's current state and the round's draws."""
+    both at the experiment's current state and the round's draws, in the
+    experiment's compute dtype."""
+    from gan_deeplearning4j_tpu_torch.runtime import compute_dtype_scope
+
     batches = exp._critic_batches(exp._to_device(xb))
     zs, epsilons, gen_z = exp._round_draws(int(exp.gen_state.step), batches.shape[1])
-    c_loss, c_grads = exp.trainer.critic_grads(exp.critic_state.params, exp.gen_state.params,
-                                               batches[0], zs[0], epsilons[0])
-    g_loss, g_grads, _ = exp.trainer.gen_grads(exp.gen_state.params, exp.critic_state.params, gen_z)
+    with compute_dtype_scope(exp._compute_dtype):
+        c_loss, c_grads = exp.trainer.critic_grads(exp.critic_state.params, exp.gen_state.params,
+                                                   batches[0], zs[0], epsilons[0])
+        g_loss, g_grads, _ = exp.trainer.gen_grads(exp.gen_state.params, exp.critic_state.params, gen_z)
     return {"critic": float(c_loss), "gen": float(g_loss)}, {"critic": c_grads, "gen": g_grads}
 
 
@@ -600,44 +642,16 @@ def _phase_family_resume(directory: str, card: str) -> list:
     """(f) 2 iterations, save, load into a fresh experiment, 2 more:
     bit-equal to 4 straight iterations; the ops that
     ``use_deterministic_algorithms`` flags meanwhile are listed."""
-    import warnings
-
-    from gan_deeplearning4j_tpu_torch.harness.experiment import flatten_states
-
     rows = []
     for name, batch in (("cifar10", 64), ("wgan_gp", 320)):
-        ckpt = os.path.join(directory, f"resume_{name}")
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                straight = _family_experiment(name, batch)
-                batches = _family_batches(straight, 4, batch)
-                for xb, yb in batches:
-                    straight.train_iteration(xb, yb)
-                first = _family_experiment(name, batch)
-                for xb, yb in batches[:2]:
-                    first.train_iteration(xb, yb)
-                first.save_models(ckpt)
-                resumed = _family_experiment(name, batch)
-                if resumed.load_models(ckpt) != 2:
-                    raise AssertionError(f"{name}: load_models did not restore iteration 2")
-                for xb, yb in batches[2:]:
-                    resumed.train_iteration(xb, yb)
-        finally:
-            torch.use_deterministic_algorithms(False)
-        a, b = flatten_states(straight.digest_states()), flatten_states(resumed.digest_states())
-        differ = [k for k in a if not (torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
-                                       else a[k] == b[k])]
-        flagged = sorted({str(w.message).split("\n")[0][:160] for w in caught
-                          if "deterministic" in str(w.message)})
-        row = {"phase": "family_resume", "family": name, "batch": batch, "bit_exact": not differ,
-               "leaves": len(a), "differing_leaves": differ[:5],
-               "nondeterministic_ops_flagged": flagged, "card": card}
+        batches = _family_batches(_family_experiment(name, batch), 4, batch)
+        checked = _resume_check(lambda: _family_experiment(name, batch), batches,
+                                os.path.join(directory, f"resume_{name}"))
+        row = {"phase": "family_resume", "family": name, "batch": batch, **checked, "card": card}
         print(json.dumps(row))
         rows.append(row)
-        if differ:
-            raise AssertionError(f"{name}: resume is not bit-exact on the card: {differ[:5]}")
+        if not checked["bit_exact"]:
+            raise AssertionError(f"{name}: resume is not bit-exact on the card: {checked['differing_leaves']}")
     return rows
 
 
@@ -706,6 +720,237 @@ def _phase_family_timing(card: str) -> list:
     return rows
 
 
+# -- bf16: mixed precision and bf16 storage ----------------------------------
+
+#: (i)'s batches: those of (a) and (e)
+BF16_BATCHES = {"mnist": 64, "tabular": 256, "cifar10": 64, "wgan_gp": 80}
+#: (i)'s bounds, card against CPU after one bf16 iteration, per family:
+#: (relative bound on each loss, bound on the params' worst leaf by
+#: ``state_divergence``, leaves of one step's size apart). bf16 rounding
+#: flips max-pool winners and the sign of RmsProp's ±lr steps where
+#: gradients cancel, so these are of the CPU tests' bounds against the JAX
+#: package (tests/test_torch_bf16_train.py), not the fp32 phases' 1e-4 /
+#: 5e-3.
+BF16_ITER_BOUNDS = {
+    "mnist": ({"d_loss": 1e-3, "g_loss": 1e-3, "cv_loss": 3e-2}, 0.1),
+    "tabular": ({"d_loss": 1e-4, "g_loss": 1e-4}, 0.05),
+    "cifar10": ({"d_loss": 1e-3, "g_loss": 1e-3}, 0.06),
+}
+#: the WGAN-GP first steps' bounds (losses: critic, generator; gradient leaves)
+BF16_WGAN_BOUNDS = ({"critic": 1e-3, "gen": 1e-2}, 0.15)
+
+
+def _params_only(flat: dict) -> dict:
+    return {k: v for k, v in flat.items()
+            if isinstance(v, torch.Tensor) and v.ndim and "/opt_state/" not in k}
+
+
+def _step_sized(params: dict, lr: float) -> list:
+    """Param leaves no larger than two steps of ``lr`` in every element
+    (``‖p‖ ≤ 2·lr·√n``): zero-initialised biases and BatchNorm shifts after
+    their first steps. Where their gradients cancel, a rounding difference
+    flips the sign of the whole ±lr step, so ``state_divergence`` reports
+    them apart (``rounding_only``), held by the step bound alone."""
+    return [k for k, v in params.items() if float(v.double().norm()) <= 2 * lr * v.numel() ** 0.5]
+
+
+def _mnist_experiment(batch: int, **overrides):
+    from gan_deeplearning4j_tpu_torch.harness import GanExperiment
+
+    return GanExperiment(_config(batch_size_train=batch, **overrides))
+
+
+def _phase_bf16_card_vs_cpu(x, y, card: str) -> list:
+    """(i) Every family under ``compute_dtype="bf16"``, one iteration from
+    the same init and draws on the card (cuDNN bf16 convolutions, the bf16
+    GEMM with an fp32 output) and on the CPU (fp32 arithmetic on
+    bf16-rounded operands): losses and the params' worst leaf held to
+    ``BF16_ITER_BOUNDS`` (leaves of one step's size apart, see
+    ``_step_sized``), every param element to 2·lr a step; for
+    ``wgan_gp`` the first critic step's and a generator step's losses and
+    gradients, the round reported."""
+    from gan_deeplearning4j_tpu_torch.harness.experiment import flatten_states, state_divergence
+    from gan_deeplearning4j_tpu_torch.ops.linear import dense_route
+
+    rows = []
+    for name, batch in BF16_BATCHES.items():
+        if name == "mnist":
+            gpu = _mnist_experiment(batch, compute_dtype="bf16")
+            cpu = _mnist_experiment(batch, compute_dtype="bf16", use_accelerator=False)
+            xb, yb = x[:batch], y[:batch]
+        else:
+            gpu = _family_experiment(name, batch, compute_dtype="bf16")
+            cpu = _family_experiment(name, batch, compute_dtype="bf16", use_accelerator=False)
+            (xb, yb), = _family_batches(gpu, 1, batch)
+        held, first_step = {}, {}
+        if name == "wgan_gp":
+            (lg1, gg1), (lc1, gc1) = _wgan_first_step_grads(gpu, xb), _wgan_first_step_grads(cpu, xb)
+            grads = state_divergence(flatten_states(gg1), flatten_states(gc1))
+            loss_rel = {k: abs(lg1[k] - lc1[k]) / abs(lc1[k]) for k in lg1}
+            first_step = {"first_step_losses": {k: [lg1[k], lc1[k]] for k in lg1},
+                          "first_step_losses_rel_err": loss_rel,
+                          "first_step_grads_max_leaf_rel_err": grads["max_leaf_rel"],
+                          "first_step_grads_worst_leaves": _leaf_errors(
+                              flatten_states(gg1), flatten_states(gc1), ())["worst_leaves"]}
+            loss_bounds, leaf_bound = BF16_WGAN_BOUNDS
+            held = {"losses": all(loss_rel[k] <= loss_bounds[k] for k in loss_rel),
+                    "grads": grads["max_leaf_rel"] <= leaf_bound}
+        lg, lc = gpu.train_iteration(xb, yb), cpu.train_iteration(xb, yb)
+        keys = ("d_loss", "g_loss") + (("cv_loss",) if name == "mnist" else ())
+        rel = {k: abs(float(lg[k]) - float(lc[k])) / abs(float(lc[k])) for k in keys}
+        a, b = flatten_states(gpu.digest_states()), flatten_states(cpu.digest_states())
+        lr = max(gpu.config.dis_learning_rate, gpu.config.gen_learning_rate)
+        step_sized = _step_sized(_params_only(b), lr)
+        params = state_divergence(_params_only(a), _params_only(b), step_sized)
+        if name != "wgan_gp":
+            loss_bounds, leaf_bound = BF16_ITER_BOUNDS[name]
+            held = {"losses": all(rel[k] <= loss_bounds[k] for k in keys),
+                    "params": params["max_leaf_rel"] <= leaf_bound
+                    and max(params["max_abs"], params["rounding_only_max_abs"]) <= 4 * lr}
+        row = {"phase": "bf16_card_vs_cpu", "family": name, "batch": batch, "compute_dtype": "bf16",
+               "dense_route_card": dense_route(gpu.device), "held": held,
+               "losses": {k: [float(lg[k]), float(lc[k])] for k in keys}, "losses_rel_err": rel,
+               "params_max_abs_err": params["max_abs"], "params_max_leaf_rel_err": params["max_leaf_rel"],
+               "step_sized_leaves": len(step_sized),
+               "step_sized_max_abs_err": params["rounding_only_max_abs"],
+               "all_leaves_max_leaf_rel_err": state_divergence(a, b)["max_leaf_rel"],
+               **_leaf_errors(_params_only(a), _params_only(b), ()), **first_step, "card": card}
+        print(json.dumps(row))
+        rows.append(row)
+        del gpu, cpu
+        gc.collect()
+    missed = [row["family"] for row in rows if not all(row["held"].values())]
+    if missed:
+        raise AssertionError(f"bf16 card vs CPU outside the bounds: {missed}")
+    return rows
+
+
+def _phase_bf16_resume(x, y, directory: str, card: str) -> list:
+    """(j) Bit-exact resume on the card in bf16 (2 + save + load + 2
+    against 4): MNIST b200 and ``cifar10`` b64 under mixed precision, MNIST
+    b200 under bf16 storage. A bf16 op that ``use_deterministic_algorithms``
+    flags fails the phase: no fallback to fp32 or to the CPU."""
+    rows = []
+    cases = (("mnist", 200, {"compute_dtype": "bf16"}), ("cifar10", 64, {"compute_dtype": "bf16"}),
+             ("mnist", 200, {"param_dtype": "bf16"}))
+    for name, batch, dtypes in cases:
+        if name == "mnist":
+            make = lambda: _mnist_experiment(batch, **dtypes)  # noqa: E731
+            batches = _mnist_batches(x, y, batch, 4)
+        else:
+            make = lambda: _family_experiment(name, batch, **dtypes)  # noqa: E731
+            batches = _family_batches(make(), 4, batch)
+        mode = "_".join(dtypes)
+        checked = _resume_check(make, batches, os.path.join(directory, f"bf16_resume_{name}_{mode}"))
+        row = {"phase": "bf16_resume", "family": name, "batch": batch, **dtypes, **checked, "card": card}
+        print(json.dumps(row))
+        rows.append(row)
+        if not checked["bit_exact"] or checked["nondeterministic_ops_flagged"]:
+            raise AssertionError(f"bf16 resume on the card: {row}")
+        gc.collect()
+    return rows
+
+
+#: (k): a bf16 bundle's outputs against the fp32 bundle's, relative to the
+#: largest |fp32 output| of the kind
+BF16_SERVE_REL = 5e-2
+
+
+def _phase_bf16_publish_serve(x, y, bundle_dir: str, directory: str, card: str) -> dict:
+    """(k) A ``param_dtype="bf16"`` MNIST run (2 iterations, b64) →
+    ``publish_for_serving`` → the engine on the card, computing its bf16
+    params in fp32 as the JAX engine does: equal to the trainer's own
+    ``gen`` and ``cv`` (fp32 arithmetic) within 1e-5. Then
+    ``build_bf16_variant`` of the serving phase's fp32 bundle, served on
+    the card: staged ``run`` equals ``run_host`` for every kind and n in
+    (1, 3, 8, 21, 130), the rows are within ``BF16_SERVE_REL`` of the fp32
+    bundle's on the card (the same bf16 bundle on the CPU is reported), and
+    the resident param bytes are half the fp32 bundle's."""
+    from gan_deeplearning4j_tpu_torch.quant import build_bf16_variant
+    from gan_deeplearning4j_tpu_torch.serving import ServingEngine
+
+    exp = _mnist_experiment(64, param_dtype="bf16", output_dir=os.path.join(directory, "bf16_run"))
+    for xb, yb in _mnist_batches(x, y, 64, 2):
+        exp.train_iteration(xb, yb)
+    manifest = exp.publish_for_serving(os.path.join(directory, "bf16_run", "serving"))
+    engine = ServingEngine.from_bundle(manifest["directory"], device=exp.device)
+    rng = np.random.default_rng(SEED)
+    z = rng.uniform(-1, 1, (21, 2)).astype(np.float32)
+    rows = rng.random((21, 784), dtype=np.float32)
+    with torch.no_grad():
+        want_sample = exp.gen.output(exp.gen_params, torch.from_numpy(z).to(exp.device))
+        want_sample = want_sample.reshape(21, -1).cpu().numpy()
+        want_cls = exp.cv.output(exp.cv_state.params, torch.from_numpy(rows).to(exp.device)).cpu().numpy()
+    storage_errs = {"sample": float(np.max(np.abs(engine.run("sample", z) - want_sample))),
+                    "classify": float(np.max(np.abs(engine.run("classify", rows) - want_cls)))}
+    leaf_dtypes = sorted({str(t.dtype) for lp in exp.gen_params.values() for t in lp.values()})
+    if max(storage_errs.values()) > 1e-5 or leaf_dtypes != ["torch.bfloat16"]:
+        raise AssertionError(f"bf16-storage bundle vs trainer: {storage_errs}, {leaf_dtypes}")
+
+    variant = build_bf16_variant(bundle_dir, os.path.join(directory, "bf16_variant"))
+    bf16 = ServingEngine.from_bundle(os.path.join(directory, "bf16_variant"), device="cuda")
+    bf16_cpu = ServingEngine.from_bundle(os.path.join(directory, "bf16_variant"), device="cpu")
+    fp32 = ServingEngine.from_bundle(bundle_dir, device="cuda")
+    bf16.warmup()
+    rng = np.random.default_rng(SEED)
+    vs_fp32, vs_cpu = {}, {}
+    for kind in bf16.kinds:
+        for n in SIZES:
+            rows = _rows(kind, n, rng)
+            staged = bf16.run(kind, rows)
+            if not np.array_equal(staged, bf16.run_host(kind, rows)) or not np.all(np.isfinite(staged)):
+                raise AssertionError(f"bf16 {kind} n={n}: run differs from run_host, or non-finite")
+            ref = fp32.run(kind, rows)
+            scale = max(float(np.max(np.abs(ref))), 1e-6)
+            vs_fp32[kind] = max(vs_fp32.get(kind, 0.0), float(np.max(np.abs(staged - ref))) / scale)
+            vs_cpu[kind] = max(vs_cpu.get(kind, 0.0),
+                               float(np.max(np.abs(staged - bf16_cpu.run(kind, rows)))) / scale)
+    resident = {"bf16": bf16.resident_param_bytes(), "fp32": fp32.resident_param_bytes()}
+    row = {"phase": "bf16_publish_serve", "storage_run_engine_vs_trainer_max_abs_err": storage_errs,
+           "storage_bundle_leaf_dtypes": leaf_dtypes, "variant_quant": variant["quant"]["method"],
+           "variant_stats_precision": bf16.stats()["precision"],
+           "variant_vs_fp32_rel_err": vs_fp32, "variant_card_vs_cpu_rel_err": vs_cpu,
+           "resident_param_bytes": resident, "serve_compile_counts": bf16.serve_compile_counts,
+           "card": card}
+    print(json.dumps(row))
+    if (max(vs_fp32.values()) > BF16_SERVE_REL or 2 * resident["bf16"] != resident["fp32"]
+            or bf16.stats()["precision"] != "bf16" or any(bf16.serve_compile_counts.values())):
+        raise AssertionError(f"bf16 variant: {row}")
+    return row
+
+
+def _phase_bf16_timing(x, y, card: str) -> list:
+    """(l) Iteration timing under ``compute_dtype="bf16"``, as the JAX bench
+    runs its configs 1-5 (bench.py), on one card: MNIST b200 (beside (d)),
+    tabular b256 and b4096 (configs 2, 2b), ``cifar10`` b64 (3),
+    ``celeba64`` b64 (4), ``wgan_gp`` b320 (5). The roofline share is
+    against the dense bf16 tensor-core peak, 989 TFLOP/s (NVIDIA's H100
+    SXM data sheet)."""
+    from gan_deeplearning4j_tpu_torch.ops.linear import dense_route
+
+    rows = []
+    for name, batch in (("mnist", 200), ("tabular", 256), ("tabular", 4096), ("cifar10", 64),
+                        ("celeba64", 64), ("wgan_gp", 320)):
+        if name == "mnist":
+            exp = _mnist_experiment(batch, compute_dtype="bf16")
+            batches = _mnist_batches(x, y, batch, 30)
+        else:
+            exp = _family_experiment(name, batch, compute_dtype="bf16")
+            distinct = _family_batches(exp, 4, batch)
+            batches = [distinct[i % 4] for i in range(30)]
+        row = {"phase": "bf16_timing", "family": name, "compute_dtype": "bf16",
+               "dense_route": dense_route(exp.device),
+               **_measure_iterations(exp, batches, batch, top_n=5, peak=("bf16", BF16_FLOP_PER_S)),
+               "card": card}
+        print(json.dumps(row))
+        rows.append(row)
+        del exp
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--json", default=None, help="also write every measurement to this file")
@@ -743,20 +988,25 @@ def main(argv=None) -> int:
             "run_publish": _phase_run_and_publish(make_train, make_test, directory, card),
             "timing": _phase_timing(x, y, card),
         }
-        # each family phase runs even when an earlier one failed; a failure
-        # still fails the run
+        # each family and bf16 phase runs even when an earlier one failed;
+        # a failure still fails the run
         families, failed = {}, []
         for key, run in (("card_vs_cpu", lambda: _phase_family_card_vs_cpu(card)),
                          ("resume", lambda: _phase_family_resume(directory, card)),
                          ("run_publish", lambda: _phase_family_run_publish(directory, card)),
-                         ("timing", lambda: _phase_family_timing(card))):
+                         ("timing", lambda: _phase_family_timing(card)),
+                         ("bf16_card_vs_cpu", lambda: _phase_bf16_card_vs_cpu(x, y, card)),
+                         ("bf16_resume", lambda: _phase_bf16_resume(x, y, directory, card)),
+                         ("bf16_publish_serve",
+                          lambda: _phase_bf16_publish_serve(x, y, directory, directory, card)),
+                         ("bf16_timing", lambda: _phase_bf16_timing(x, y, card))):
             try:
                 families[key] = run()
             except Exception:  # reported, and the run fails below
                 traceback.print_exc()
                 failed.append(key)
     if failed:
-        print(f"chip_smoke: family phases failed: {failed}", file=sys.stderr)
+        print(f"chip_smoke: family / bf16 phases failed: {failed}", file=sys.stderr)
         return 1
     top = engine.buckets[-1]
     for row in ladder:
@@ -774,10 +1024,12 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [], "reason": (
         "the JAX package has no Pallas kernel (no pl.pallas_call anywhere in the repo); "
         "the serving path and the training of every family (mnist, tabular, image, "
-        "wgan_gp) run convolutions, transposed convolutions, GEMMs, pooling, their "
-        "backward passes and the gradient penalty's double backward through PyTorch "
-        "(cuDNN, cuBLAS, ATen) by autograd, and the optimizer updates as torch ops, "
-        "as the JAX package leaves them to XLA")}))
+        "wgan_gp), in fp32 and in bf16 (mixed precision and bf16 storage, and bf16 "
+        "bundles served), run convolutions, transposed convolutions, GEMMs, pooling, "
+        "their backward passes and the gradient penalty's double backward through "
+        "PyTorch (cuDNN, cuBLAS incl. its bf16 GEMM with an fp32 output, ATen) by "
+        "autograd, and the optimizer updates as torch ops, as the JAX package leaves "
+        "them to XLA")}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -6,10 +6,15 @@ defaults, overridable from JSON and argparse.
 ``validate()`` makes the JAX package's checks (the WGAN-GP family's
 included) and also refuses, with ``NotImplementedError`` naming the
 ROADMAP.md item that brings it, what the port does not run yet:
-``distributed != "none"`` and ``update_sharding`` ('Parallel training'), a
-bf16 ``compute_dtype`` or ``param_dtype`` ('bf16 training'),
+``distributed != "none"`` and ``update_sharding`` ('Parallel training'),
 ``conditioning="class"`` ('Class conditioning') and ``prefetch > 0``
 ('Device-resident and prefetch iterators').
+
+Precision, as in the JAX package: ``compute_dtype="bf16"`` runs the dense
+and convolution products in bf16 with fp32 accumulation while params stay
+fp32 (mixed precision); ``param_dtype="bf16"`` also stores params and
+updater state in bf16 and implies ``compute_dtype="bf16"``. Unknown names
+raise ``ValueError``.
 
 ``use_accelerator`` (the reference's ``useGpu``) picks the device: True
 means the card, ``cuda:0``, and raises without CUDA; False means the CPU.
@@ -21,6 +26,8 @@ import argparse
 import dataclasses
 import json
 from typing import Optional, Sequence
+
+from gan_deeplearning4j_tpu_torch.runtime.dtype import parse_compute_dtype
 
 
 @dataclasses.dataclass
@@ -89,8 +96,12 @@ class ExperimentConfig:
     batch_size_per_worker: int = 200
     prefetch: int = 0  # workerPrefetchNumBatches (:328)
     use_accelerator: bool = True  # the useGpu flag (:92): True = cuda:0, False = CPU
-    compute_dtype: Optional[str] = None  # None / "f32"; "bf16" is not ported yet
-    param_dtype: Optional[str] = None  # None / "f32"; "bf16" is not ported yet
+    # None / "f32": full precision; "bf16": dense and convolution products in
+    # bf16 with fp32 accumulation, params fp32 (mixed precision)
+    compute_dtype: Optional[str] = None
+    # None / "f32": fp32 params and updater state; "bf16": both stored in
+    # bf16 (implies compute_dtype="bf16" when that is unset)
+    param_dtype: Optional[str] = None
 
     # -- observability --------------------------------------------------------
     metrics_jsonl: Optional[str] = None
@@ -101,7 +112,7 @@ class ExperimentConfig:
 
     def __post_init__(self) -> None:
         if self.param_dtype is not None and self.compute_dtype is None:
-            if _parse_dtype(self.param_dtype) == "bf16":
+            if parse_compute_dtype(self.param_dtype) is not None:
                 # bf16 storage implies bf16 compute, as in the JAX package
                 self.compute_dtype = "bf16"
 
@@ -133,7 +144,8 @@ class ExperimentConfig:
                 f"unknown conditioning {self.conditioning!r} "
                 f"(want 'none' or 'class')"
             )
-        dtypes = (_parse_dtype(self.compute_dtype), _parse_dtype(self.param_dtype))
+        parse_compute_dtype(self.compute_dtype)  # raises on an unknown dtype
+        parse_compute_dtype(self.param_dtype)
         from gan_deeplearning4j_tpu_torch.models import registry
 
         family = registry.get(self.model_family)  # raises on an unknown family
@@ -162,11 +174,6 @@ class ExperimentConfig:
             raise NotImplementedError(
                 f"distributed={self.distributed!r} / update_sharding is not ported "
                 f"yet: ROADMAP.md queue 1, 'Parallel training'"
-            )
-        if "bf16" in dtypes:
-            raise NotImplementedError(
-                "bf16 compute_dtype / param_dtype is not ported yet: ROADMAP.md "
-                "queue 1, 'bf16 training'"
             )
         if self.conditioning == "class":
             raise NotImplementedError(
@@ -222,14 +229,3 @@ class ExperimentConfig:
         overrides = {k: v for k, v in args.items() if v is not None}
         return dataclasses.replace(base, **overrides).validate()
 
-
-def _parse_dtype(name) -> str:
-    """``"bf16"`` for a bfloat16 name, ``"f32"`` for None or a float32 name;
-    anything else raises ``ValueError`` (the JAX package's accepted
-    spellings)."""
-    key = "none" if name is None else str(name).lower()
-    if key in ("bf16", "bfloat16"):
-        return "bf16"
-    if key in ("f32", "float32", "none", ""):
-        return "f32"
-    raise ValueError(f"unknown compute dtype {name!r} (use 'bf16' or 'f32')")

@@ -42,6 +42,15 @@ Device. ``config.use_accelerator`` picks it: True is ``cuda:0`` and raises
 without CUDA; False is the CPU. On the card fp32 runs with TF32 off and
 cuDNN restricted to deterministic algorithms.
 
+Precision, as in the JAX package. Every forward and backward pass (the
+iteration, the exports) runs inside ``compute_dtype_scope(compute_dtype)``,
+which ``dense`` and the convolutions read. Under ``param_dtype="bf16"``
+every float leaf of the params and the updater state is cast to bf16 at
+init and when a checkpoint is loaded (``_cast_state``); int leaves
+(Adam's ``t``) stay. Batches, z and label noise stay float32: activations
+are float32 from the first bias or BatchNorm on, and only params, updater
+state and param gradients are bf16.
+
 Not ported yet, each raising with its ROADMAP.md item: meshes and the
 parameter-averaging path ('Parallel training'), mesh-sharded checkpoints
 and store publishing ('The operations planes').
@@ -49,11 +58,9 @@ and store publishing ('The operations planes').
 
 from __future__ import annotations
 
-import json
 import logging
 import os
 import re
-import tempfile
 import time
 from collections import deque
 from typing import Dict, List, Optional, Sequence
@@ -73,10 +80,16 @@ from gan_deeplearning4j_tpu_torch.nn.layers import (
     DenseLayer,
 )
 from gan_deeplearning4j_tpu_torch.parallel import GraphTrainer, TrainState
+from gan_deeplearning4j_tpu_torch.quant.variants import write_bundle_manifest
 from gan_deeplearning4j_tpu_torch.runtime.device import (
     pin_deterministic_kernels,
     pin_fp32_precision,
     resolve_device,
+)
+from gan_deeplearning4j_tpu_torch.runtime.dtype import (
+    cast_float_leaves,
+    compute_dtype_scope,
+    parse_compute_dtype,
 )
 from gan_deeplearning4j_tpu_torch.utils.metrics import MetricsLogger
 from gan_deeplearning4j_tpu_torch.utils.profiling import PhaseTimer, device_trace
@@ -257,6 +270,12 @@ class GanExperiment:
             self.cv_trainer = GraphTrainer(self.cv)
             self.cv_state = self.cv_trainer.init_state(params=cv_params)
         self.gen_params = self.gen.init(device=dev)
+        self._compute_dtype = parse_compute_dtype(cfg.compute_dtype)
+        self._param_dtype = parse_compute_dtype(cfg.param_dtype)
+        self.dis_state = self._cast_state(self.dis_state)
+        self.gan_state = self._cast_state(self.gan_state)
+        self.cv_state = self._cast_state(self.cv_state)
+        self.gen_params = self._cast_state(self.gen_params)
 
         # label-softening noise, sampled once like the reference (:404-406)
         self._noise_rng = np.random.default_rng(cfg.seed)
@@ -324,12 +343,29 @@ class GanExperiment:
         return float(np.float32(cfg.dis_lr_decay_rate) ** np.float32(iteration // cfg.dis_lr_decay_every))
 
     def _to_device(self, x) -> torch.Tensor:
+        """Host rows (batches, z, ε) as float32 on the device: they are
+        never cast to the param dtype."""
         return torch.as_tensor(x, dtype=torch.float32).to(self.device, non_blocking=True)
+
+    def _cast_state(self, state):
+        """Under bf16 storage, a ``TrainState`` or params tree with every
+        float leaf in bf16 (the JAX package's ``_cast_state``; int leaves
+        and the step stay); otherwise ``state`` itself."""
+        if self._param_dtype is None or state is None:
+            return state
+        if isinstance(state, TrainState):
+            return TrainState(cast_float_leaves(state.params, self._param_dtype),
+                              cast_float_leaves(state.opt_state, self._param_dtype), state.step)
+        return cast_float_leaves(state, self._param_dtype)
 
     # -- the iteration ----------------------------------------------------
     def _fused(self, real_f: torch.Tensor, real_l: torch.Tensor) -> torch.Tensor:
         """One alternating iteration on device tensors; returns the
         ``(d_loss, g_loss, cv_loss)`` device vector."""
+        with compute_dtype_scope(self._compute_dtype):
+            return self._fused_in_scope(real_f, real_l)
+
+    def _fused_in_scope(self, real_f: torch.Tensor, real_l: torch.Tensor) -> torch.Tensor:
         cfg = self.config
         b = real_f.shape[0]
         step = self.dis_state.step
@@ -401,7 +437,7 @@ class GanExperiment:
         """Decode the z-grid and write ``{prefix}_out_{index}.csv``:
         (grid², num_features) rows, one device→host copy."""
         cfg = self.config
-        with torch.no_grad():
+        with torch.no_grad(), compute_dtype_scope(self._compute_dtype):
             out = self.gen.output(self.gen_params, self._to_device(self._z_grid), train=False)
         out = out.cpu().numpy().reshape(self._z_grid.shape[0], cfg.num_features)
         os.makedirs(cfg.output_dir, exist_ok=True)
@@ -420,7 +456,8 @@ class GanExperiment:
         chunks: List[np.ndarray] = []
         while test_iterator.has_next():
             batch = test_iterator.next()
-            out = self.cv_trainer.output(self.cv_state, self._to_device(batch.features))
+            with compute_dtype_scope(self._compute_dtype):
+                out = self.cv_trainer.output(self.cv_state, self._to_device(batch.features))
             chunks.append(out.cpu().numpy())
         preds = np.vstack(chunks) if chunks else np.zeros((0, cfg.num_classes))
         os.makedirs(cfg.output_dir, exist_ok=True)
@@ -474,7 +511,8 @@ class GanExperiment:
     def load_models(self, directory: Optional[str] = None) -> int:
         """Resume: restore every state ``save_models`` wrote (params, updater
         state, step), from either package. Returns the restored iteration
-        count."""
+        count. A bf16 checkpoint restores as bf16; under bf16 storage an
+        fp32 checkpoint is cast on entry."""
         cfg = self.config
         directory = directory or cfg.output_dir
         if any(_MESH_SHARD_RE.search(n) and n.startswith(cfg.file_prefix)
@@ -483,16 +521,21 @@ class GanExperiment:
                 f"mesh-sharded checkpoints are not ported yet: {_OPERATIONS_WAITS}"
             )
         prefix = os.path.join(directory, cfg.file_prefix)
-        restore = ModelSerializer.restore_train_state
-        self.dis_state = restore(f"{prefix}_dis_model.zip", self.dis_trainer, device=self.device)
-        self.gan_state = restore(f"{prefix}_gan_model.zip", self.gan_trainer, device=self.device)
+        self.dis_state = self._restore(f"{prefix}_dis_model.zip", self.dis_trainer)
+        self.gan_state = self._restore(f"{prefix}_gan_model.zip", self.gan_trainer)
         if self.cv is not None:
-            self.cv_state = restore(f"{prefix}_CV_model.zip", self.cv_trainer, device=self.device)
-        _, self.gen_params, _, _ = read_model(
+            self.cv_state = self._restore(f"{prefix}_CV_model.zip", self.cv_trainer)
+        _, gen_params, _, _ = read_model(
             f"{prefix}_gen_model.zip", load_updater=False, device=self.device
         )
+        self.gen_params = self._cast_state(gen_params)
         self.batch_counter = int(self.gan_state.step)
         return self.batch_counter
+
+    def _restore(self, path: str, trainer) -> TrainState:
+        """One checkpoint with updater state, on the experiment's device, in
+        its storage dtype."""
+        return self._cast_state(ModelSerializer.restore_train_state(path, trainer, device=self.device))
 
     def publish_for_serving(self, directory: Optional[str] = None, store=None) -> Dict:
         """Publish the inference artifacts (the generator and, where the
@@ -534,16 +577,7 @@ class GanExperiment:
         scenario = scenario_from_config(cfg)
         if scenario is not None:
             manifest["zoo"] = scenario.to_dict()
-        fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
-        try:
-            with os.fdopen(fd, "w") as fh:
-                json.dump(manifest, fh, indent=2)
-                fh.write("\n")
-            os.replace(tmp, os.path.join(directory, "serving.json"))
-        except BaseException:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-            raise
+        write_bundle_manifest(directory, manifest)
         return {**manifest, "directory": directory}
 
     # -- the loop ---------------------------------------------------------

@@ -22,6 +22,13 @@ generator step, in ``train_iteration`` and in ``train_iterations`` alike,
 so a window of K rounds equals K single rounds bit for bit and a resumed
 run draws what the uninterrupted one would have. (The JAX package's
 window draws another stream than its single round.)
+
+Precision is ``GanExperiment``'s: rounds, sampling and exports run inside
+the experiment's compute-dtype scope, and bf16 storage casts both states at
+init and on load. The gradient penalty's double backward then runs through
+the bf16 convolutions. Adam promotes bf16 params to float32 on their first
+step and their moments on the next, as in the JAX package
+(``optim/updaters.py``); the draws stay float32.
 """
 
 from __future__ import annotations
@@ -43,11 +50,12 @@ from gan_deeplearning4j_tpu_torch.harness.experiment import (
     rounding_only_params,
     step_generator,
 )
+from gan_deeplearning4j_tpu_torch.runtime.dtype import compute_dtype_scope, parse_compute_dtype
 from gan_deeplearning4j_tpu_torch.models import registry
 from gan_deeplearning4j_tpu_torch.models.wgan_gp import WganGpTrainer
 from gan_deeplearning4j_tpu_torch.utils.metrics import MetricsLogger
 from gan_deeplearning4j_tpu_torch.utils.profiling import PhaseTimer
-from gan_deeplearning4j_tpu_torch.utils.serializer import ModelSerializer, write_model
+from gan_deeplearning4j_tpu_torch.utils.serializer import write_model
 
 
 class WganGpExperiment(GanExperiment):
@@ -70,6 +78,10 @@ class WganGpExperiment(GanExperiment):
         self.model_cfg = self.family.make_model_config(cfg)
         self.trainer = WganGpTrainer(self.model_cfg)
         self.critic_state, self.gen_state = self.trainer.init_states(cfg.seed, device=self.device)
+        self._compute_dtype = parse_compute_dtype(cfg.compute_dtype)
+        self._param_dtype = parse_compute_dtype(cfg.param_dtype)
+        self.critic_state = self._cast_state(self.critic_state)
+        self.gen_state = self._cast_state(self.gen_state)
         # no transfer classifier; the generator is what gets published
         self.cv = self.cv_trainer = self.cv_state = None
         self.gen = self.trainer.generator
@@ -125,7 +137,7 @@ class WganGpExperiment(GanExperiment):
         """One WGAN-GP round. ``real_labels`` is accepted (``run()`` passes
         labels) and ignored: the critic is unsupervised. Returns device
         scalars; ``cv_loss`` is NaN."""
-        with self.timer.phase("train_round"):
+        with self.timer.phase("train_round"), compute_dtype_scope(self._compute_dtype):
             batches = self._critic_batches(self._to_device(real_features))
             draws = self._round_draws(int(self.gen_state.step), batches.shape[1])
             self.critic_state, self.gen_state, c, g = self.trainer.train_round(
@@ -141,7 +153,7 @@ class WganGpExperiment(GanExperiment):
         rounds = torch.stack([self._critic_batches(feats[k]) for k in range(feats.shape[0])])
         step = int(self.gen_state.step)
         draws = [self._round_draws(step + k, rounds.shape[2]) for k in range(rounds.shape[0])]
-        with self.timer.phase("train_rounds"):
+        with self.timer.phase("train_rounds"), compute_dtype_scope(self._compute_dtype):
             self.critic_state, self.gen_state, c, g = self.trainer.train_rounds(
                 self.critic_state, self.gen_state, rounds, draws
             )
@@ -169,7 +181,8 @@ class WganGpExperiment(GanExperiment):
     def sample(self, num: int, seed: int = 0) -> np.ndarray:
         """``(num, H, W, C)`` generator samples, z from a CPU generator
         seeded with ``seed``."""
-        out = self.trainer.sample(self.gen_state, torch.Generator().manual_seed(seed), num)
+        with compute_dtype_scope(self._compute_dtype):
+            out = self.trainer.sample(self.gen_state, torch.Generator().manual_seed(seed), num)
         return out.cpu().numpy()
 
     # -- checkpoints ------------------------------------------------------
@@ -206,7 +219,8 @@ class WganGpExperiment(GanExperiment):
 
     def load_models(self, directory: Optional[str] = None) -> int:
         """Resume from either package's ``save_models`` directory. Returns
-        the restored round count (the generator's step)."""
+        the restored round count (the generator's step). Under bf16
+        storage every float leaf is cast on entry, as at init."""
         cfg = self.config
         directory = directory or cfg.output_dir
         if any(_MESH_SHARD_RE.search(n) and n.startswith(cfg.file_prefix)
@@ -215,10 +229,7 @@ class WganGpExperiment(GanExperiment):
                 f"mesh-sharded checkpoints are not ported yet: {_OPERATIONS_WAITS}"
             )
         prefix = os.path.join(directory, cfg.file_prefix)
-        restore = ModelSerializer.restore_train_state
-        self.critic_state = restore(f"{prefix}_critic_model.zip", self.trainer.critic_trainer,
-                                    device=self.device)
-        self.gen_state = restore(f"{prefix}_gen_model.zip", self.trainer.gen_trainer,
-                                 device=self.device)
+        self.critic_state = self._restore(f"{prefix}_critic_model.zip", self.trainer.critic_trainer)
+        self.gen_state = self._restore(f"{prefix}_gen_model.zip", self.trainer.gen_trainer)
         self.batch_counter = int(self.gen_state.step)
         return self.batch_counter

@@ -13,7 +13,9 @@ extra key raises.
 whole ``TrainState`` (params, updater state, step): what the JAX package's
 ``TrainState`` becomes under ``np.asarray``, and what a checkpoint with
 updater state holds. The updater state is checked key for key, shape for
-shape and dtype for dtype against a fresh ``GraphOptimizer(graph).init``.
+shape and dtype for dtype against a fresh ``GraphOptimizer(graph).init``,
+except that a float slot may be in either storage dtype (under bf16
+storage, Adam leaves a step with float32 params and bf16 moments).
 
 Leaves may be numpy arrays (including ``ml_dtypes`` bfloat16 arrays, as
 ``np.asarray`` gives them for a bf16 JAX array) or CPU tensors (the
@@ -117,7 +119,12 @@ def train_state_from_numpy(state, device: DeviceLike, *, graph):
             opt_state[layer][pname] = {}
             for slot, ref in slots_want.items():
                 t = leaf_to_tensor(slots_got[slot])
-                if tuple(t.shape) != tuple(ref.shape) or t.dtype != ref.dtype:
+                # a float slot may be in either storage dtype, whatever its
+                # param's: under bf16 storage Adam promotes the params to
+                # float32 one step before their moments (optim/updaters.py)
+                dtype_ok = t.dtype == ref.dtype or (
+                    ref.dtype in _STORAGE_DTYPES and t.dtype in _STORAGE_DTYPES)
+                if tuple(t.shape) != tuple(ref.shape) or not dtype_ok:
                     raise ValueError(
                         f"{layer}/{pname}/{slot}: graph wants {tuple(ref.shape)} {ref.dtype}, "
                         f"got {tuple(t.shape)} {t.dtype}"

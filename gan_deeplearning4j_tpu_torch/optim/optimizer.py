@@ -29,6 +29,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from gan_deeplearning4j_tpu_torch.ops import clipping
+from gan_deeplearning4j_tpu_torch.runtime.dtype import weak_scalar
 
 
 class GraphOptimizer:
@@ -99,7 +100,10 @@ class GraphOptimizer:
                 [opt_state[l][n] for l, n in keys], [grads[l][n] for l, n in keys], ps
             )
             if lr_scale is not None:
-                deltas = torch._foreach_mul(deltas, lr_scale)
+                # the scale is rounded to the delta's dtype first, as the
+                # reference casts it (an f32 scale must not promote a bf16
+                # delta, and a bf16 product must see the bf16 scale)
+                deltas = torch._foreach_mul(deltas, weak_scalar(lr_scale, deltas[0].dtype))
             for (layer, pname), p, s in zip(keys, torch._foreach_sub(ps, deltas), states):
                 new_params[layer][pname] = p
                 new_state[layer][pname] = s

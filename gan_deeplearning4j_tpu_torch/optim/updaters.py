@@ -16,6 +16,17 @@ order of operations.
 Learning rate 0.0 is the reference's freezing mechanism: the update is
 exactly zero, but the state still advances.
 
+Updater state is made in the param's dtype and each rule runs in the
+dtypes of its tensors, as the reference's does, so under bf16 storage the
+RmsProp cache and the update are bf16 (each ``_foreach_*`` op computes in
+fp32 and rounds once, where XLA may keep fp32 across a fusion: the two
+agree within a few bf16 ulps, not bit for bit). A Python hyperparameter
+meets a bf16 tensor rounded to bf16, as jnp's weak typing casts it
+(``runtime/dtype.py::weak_scalar``). Adam's bias correction
+divides by a 0-d float32 array in the reference, which promotes a bf16 m
+and v to float32 in jnp; the port promotes them explicitly, so a bf16
+param comes out of its first Adam step as float32 in both packages.
+
 Specs are frozen dataclasses (hashable, ``to_dict``/``updater_from_dict``
 round-trip through ``topology.json``). ``init_state(param)`` makes one
 leaf's state; ``apply_group(states, grads, params)`` updates a list of
@@ -30,6 +41,8 @@ import dataclasses
 from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
+
+from gan_deeplearning4j_tpu_torch.runtime.dtype import weak_scalar as _w
 
 State = Dict[str, Any]
 
@@ -69,7 +82,8 @@ class Sgd(UpdaterSpec):
     learning_rate: float = 0.01
 
     def apply_group(self, states, grads, params):
-        return torch._foreach_mul(list(grads), self.learning_rate), list(states)
+        grads = list(grads)
+        return torch._foreach_mul(grads, _w(self.learning_rate, grads[0].dtype)), list(states)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,13 +107,14 @@ class RmsProp(UpdaterSpec):
 
     def apply_group(self, states, grads, params):
         grads = list(grads)
+        dt = grads[0].dtype  # a group shares one dtype; the caches have it
         caches = torch._foreach_add(
-            torch._foreach_mul([s["cache"] for s in states], self.rms_decay),
-            torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - self.rms_decay),
+            torch._foreach_mul([s["cache"] for s in states], _w(self.rms_decay, dt)),
+            torch._foreach_mul(torch._foreach_mul(grads, grads), _w(1.0 - self.rms_decay, dt)),
         )
         deltas = torch._foreach_div(
-            torch._foreach_mul(grads, self.learning_rate),
-            torch._foreach_sqrt(torch._foreach_add(caches, self.epsilon)),
+            torch._foreach_mul(grads, _w(self.learning_rate, dt)),
+            torch._foreach_sqrt(torch._foreach_add(caches, _w(self.epsilon, dt))),
         )
         return deltas, [{"cache": c} for c in caches]
 
@@ -125,12 +140,19 @@ class Adam(UpdaterSpec):
         deltas, new_states = [], []
         for state, grad in zip(states, grads):
             t = state["t"] + 1
-            m = self.beta1 * state["m"] + (1 - self.beta1) * grad
-            v = self.beta2 * state["v"] + (1 - self.beta2) * grad ** 2
+            m0, v0 = state["m"], state["v"]
+            m = _w(self.beta1, m0.dtype) * m0 + _w(1 - self.beta1, grad.dtype) * grad
+            v = _w(self.beta2, v0.dtype) * v0 + _w(1 - self.beta2, grad.dtype) * grad ** 2
             tf = t.to(torch.float32)
-            m_hat = m / (1 - torch.pow(self.beta1, tf))
-            v_hat = v / (1 - torch.pow(self.beta2, tf))
-            deltas.append(self.learning_rate * m_hat / (torch.sqrt(v_hat) + self.epsilon))
+            # the reference divides by a 0-d float32 array, which promotes
+            # a bf16 m and v to float32 in jnp (and so the delta, and
+            # ``p - delta``); a 0-d tensor promotes nothing in torch, so the
+            # promotion is spelled out
+            wide = torch.promote_types(m.dtype, tf.dtype)
+            m_hat = m.to(wide) / (1 - torch.pow(self.beta1, tf))
+            v_hat = v.to(wide) / (1 - torch.pow(self.beta2, tf))
+            deltas.append(_w(self.learning_rate, wide) * m_hat
+                          / (torch.sqrt(v_hat) + _w(self.epsilon, wide)))
             new_states.append({"m": m, "v": v, "t": t})
         return deltas, new_states
 

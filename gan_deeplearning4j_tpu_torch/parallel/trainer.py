@@ -13,6 +13,12 @@ copies of the leaves (``requires_grad`` is never set on the caller's
 tensors) and returns new tensors, so states that share leaves with other
 graphs (the weight-sync rebinds) are never written through.
 
+Each gradient comes out in its param's dtype (bf16 under bf16 storage:
+autograd casts it back through the compute scope's casts); nothing here
+adds a float32 scalar or 0-d tensor to a leaf, so a leaf keeps its dtype
+unless its updater changes it as the reference's does (Adam,
+``optim/updaters.py``).
+
 ``TrainState.step`` is a Python int: the step counter lives on the host,
 so reading it never waits for the device. The two halves of a step are
 ``torch.profiler.record_function`` ranges, ``step.grad`` (forward, loss and

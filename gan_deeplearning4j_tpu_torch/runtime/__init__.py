@@ -5,5 +5,29 @@ from gan_deeplearning4j_tpu_torch.runtime.device import (
     pin_fp32_precision,
     resolve_device,
 )
+from gan_deeplearning4j_tpu_torch.runtime.dtype import (
+    cast_float_leaves,
+    compute_dtype_scope,
+    default_dtype_scope,
+    get_compute_dtype,
+    get_default_dtype,
+    parse_compute_dtype,
+    set_compute_dtype,
+    set_default_dtype,
+    weak_scalar,
+)
 
-__all__ = ["pin_deterministic_kernels", "pin_fp32_precision", "resolve_device"]
+__all__ = [
+    "cast_float_leaves",
+    "compute_dtype_scope",
+    "default_dtype_scope",
+    "get_compute_dtype",
+    "get_default_dtype",
+    "parse_compute_dtype",
+    "pin_deterministic_kernels",
+    "pin_fp32_precision",
+    "resolve_device",
+    "set_compute_dtype",
+    "set_default_dtype",
+    "weak_scalar",
+]

@@ -25,13 +25,20 @@ bucket of the ladder, so the device only ever sees bucket shapes.
   buffer returns to the pool only after its flight's event, because the
   H2D copy reads it asynchronously. On the CPU the forward pass runs
   inside ``dispatch``.
-- **Numerics.** fp32 bundles run with TF32 off (``pin_fp32_precision``).
+- **Numerics.** Whatever runs in fp32 runs with TF32 off
+  (``pin_fp32_precision``). A bundle without ``precision`` computes in
+  fp32, bf16 param leaves included (a ``param_dtype="bf16"`` run's
+  ``publish_for_serving`` bundle), as the JAX engine computes them. A
+  ``precision: "bf16"`` bundle (``quant/variants.py::build_bf16_variant``)
+  runs every forward pass inside ``compute_dtype_scope(bfloat16)``: the
+  dense and convolution products in bf16 with fp32 accumulation, on half
+  the resident param bytes (``resident_param_bytes()``).
 
-Not yet ported (ROADMAP.md queue 1): bf16 and int8 bundles
-("Quantization"); conditional zoo bundles ("Class conditioning"); more
-than one replica and the mesh bulk lane, CUDA-graph capture, the shared
-staging pool of the mux plane ("Serving, the rest"). A bundle that needs
-one of them is refused at load.
+Not yet ported (ROADMAP.md queue 1): int8 bundles ("Quantization");
+conditional zoo bundles ("Class conditioning"); more than one replica and
+the mesh bulk lane, CUDA-graph capture, the shared staging pool of the mux
+plane ("Serving, the rest"). A bundle that needs one of them is refused at
+load.
 
 Request kinds (a generator-only bundle, as the tabular, image and WGAN-GP
 families publish, serves ``sample`` alone):
@@ -57,6 +64,7 @@ from gan_deeplearning4j_tpu_torch.runtime.device import (
     pin_fp32_precision,
     resolve_device,
 )
+from gan_deeplearning4j_tpu_torch.runtime.dtype import compute_dtype_scope
 from gan_deeplearning4j_tpu_torch.telemetry.registry import get_registry
 from gan_deeplearning4j_tpu_torch.telemetry.trace import TRACER
 
@@ -68,7 +76,7 @@ _POOL_LIMIT = 4
 
 def _refuse_unported(precision: Optional[str], scenario: Optional[dict]) -> None:
     """Raise for a bundle this slice of the port cannot serve faithfully."""
-    if precision not in (None, "fp32"):
+    if precision not in (None, "fp32", "bf16"):
         raise NotImplementedError(
             f"{precision!r} serving bundles are not ported yet: ROADMAP.md "
             f"queue 1, 'Quantization'"
@@ -151,6 +159,9 @@ class ServingEngine:
         self.scenario = dict(scenario) if scenario else None
         self.generation = generation
         self.precision = precision
+        # a bf16 bundle computes its products in bf16; every other bundle
+        # in fp32 (None pins it, whatever the calling thread's scope)
+        self._compute_dtype = torch.bfloat16 if precision == "bf16" else None
         buckets = tuple(sorted(set(int(b) for b in buckets)))
         if not buckets or buckets[0] < 1:
             raise ValueError(f"invalid bucket ladder {buckets!r}")
@@ -162,10 +173,10 @@ class ServingEngine:
         for role, (_, params) in models.items():
             for layer, leaves in params.items():
                 for name, t in leaves.items():
-                    if t.dtype != torch.float32:
+                    if t.dtype not in (torch.float32, torch.bfloat16):
                         raise NotImplementedError(
-                            f"{role} param {layer}/{name} is {t.dtype}: only fp32 "
-                            f"bundles are ported yet (ROADMAP.md queue 1, 'Quantization')"
+                            f"{role} param {layer}/{name} is {t.dtype}: only fp32 and "
+                            f"bf16 leaves are ported yet (ROADMAP.md queue 1, 'Quantization')"
                         )
             self._params[role] = {
                 layer: {name: t.to(self.device) for name, t in leaves.items()}
@@ -380,14 +391,22 @@ class ServingEngine:
     def warm_failed(self) -> bool:
         return self._warm_error is not None
 
+    def resident_param_bytes(self) -> int:
+        """Device bytes this engine's params pin (one replica): a bf16
+        bundle's are half an fp32 one's."""
+        return sum(t.numel() * t.element_size()
+                   for params in self._params.values()
+                   for leaves in params.values() for t in leaves.values())
+
     def stats(self) -> dict:
         """Engine-side observability merged into the service /metrics (the
-        JAX engine's keys)."""
+        JAX engine's keys, and ``resident_param_bytes``)."""
         with self._lock:
             return {
                 "replicas": 1,
                 "generation": self.generation,
                 "precision": self.precision or "fp32",
+                "resident_param_bytes": self.resident_param_bytes(),
                 "replica_dispatches": [self._dispatches],
                 "replica_in_flight": [self._outstanding],
                 "compile_counts": dict(self._compile_counts),
@@ -422,7 +441,7 @@ class ServingEngine:
 
     def _forward(self, kind: str, x: torch.Tensor) -> torch.Tensor:
         role, fn = self._kinds[kind]
-        with torch.inference_mode():
+        with torch.inference_mode(), compute_dtype_scope(self._compute_dtype):
             return fn(self._params[role], x)
 
     def _warm_one(self, kind: str, bucket: int) -> None:

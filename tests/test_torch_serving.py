@@ -208,7 +208,7 @@ def test_full_width_dcgan_bundle_serves_like_the_jax_graphs(tmp_path):
 
 
 @pytest.mark.parametrize("extra,ok", [
-    ({"precision": "bf16"}, False),
+    ({"precision": "bf16"}, True),
     ({"precision": "int8"}, False),
     ({"zoo": {"conditioning": "class", "num_classes": 10, "z_size": 2}}, False),
     ({"zoo": {"conditioning": "none", "dataset": "mnist"}}, True),
@@ -230,6 +230,7 @@ def test_bundles_this_slice_refuses_or_loads(tmp_path, tiny_bundle, extra, ok):
         return
     eng = ServingEngine.from_bundle(directory, device="cpu")
     assert eng.buckets == tuple(extra.get("ladder", {}).get("buckets", (1, 8, 32, 128)))
+    assert eng.stats()["precision"] == extra.get("precision", "fp32")
 
 
 def test_more_than_one_replica_is_refused(engine):
