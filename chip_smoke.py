@@ -82,9 +82,37 @@ l. timing as in (h) under mixed precision: MNIST b200, tabular b256 and
    (cast) kernels counted and the roofline share against the dense bf16
    tensor-core peak (989 TFLOP/s).
 
-Every number is printed beside the card's name and power limit. The JAX
-package has no Pallas kernel, so the port has no hand-written kernel; the
-``kernels`` line says so. The last line is
+Then int8 (``quant/``), the port's one hand-written kernel first: before
+any phase, ``gan_deeplearning4j_tpu_torch/csrc/quant_dense.cu`` is built
+by ``nvcc`` (what ``ptxas -v`` says is printed). ``build_int8_variant`` of
+the serving bundle, calibrated on the card, then:
+
+m. the ``quant_dense`` kernel against its plain PyTorch version at both
+   quantized layers (1152 → 1024, 1024 → 10) and n in (1, 3, 8, 21, 32,
+   128), on rows holding half codes and values past ±127·act_scale:
+   bit-equal. Device times by CUDA-graph replay, operands cold in HBM (an
+   L2-sized fill before each call, its time subtracted), of the kernel, the
+   plain version, ``torch._int_mm`` with the same quantize and dequantize
+   (a yardstick, where it takes the shape) and the fp32 ``addmm`` of the
+   float layer, beside the bound (bytes at 3.35 TB/s, int8 operations at
+   1,979 TOP/s); the kernel's time with its operands warm in L2 beside;
+n. the main path: the int8 bundle served on the card (launch count zeroed
+   before, read after): staged ``run`` equals ``run_host``, two launches
+   per run chunk, no first run after warmup, card vs CPU within two code
+   steps, resident bytes exactly 28,694,660, the generator byte-identical,
+   the drift from the fp32 bundle within 5e-2 of the largest output, one
+   HTTP ``classify``; then the device time of the two dense vertices per
+   run, fp32 against int8, read from profiler ranges around them;
+o. ``measure_bundle_cost`` of the fp32, bf16 and int8 bundles (bytes
+   ratios exactly 0.5 and 28,694,660 / 32,260,188), and ``CanaryGate``
+   admitting the bf16 and int8 variants against the fp32 incumbent and, on
+   a tiny dense bundle, rejecting an int8 variant calibrated on rows × 1e9
+   for its accuracy.
+
+Every number is printed beside the card's name and power limit. The
+``kernels`` line lists ``quant_dense`` (the JAX package has no Pallas
+kernel; its XLA-lowered ``quant_dense`` is the one op stock torch cannot
+fuse). The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 ``--json PATH`` also writes every measurement to PATH.
 """
@@ -92,6 +120,7 @@ package has no Pallas kernel, so the port has no hand-written kernel; the
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -951,6 +980,474 @@ def _phase_bf16_timing(x, y, card: str) -> list:
 
 
 
+# -- int8: the quant_dense kernel, int8 bundles served, cost and canary -------
+
+#: H100 SXM data sheet: HBM3 rate, dense int8 tensor-core rate (no sparsity)
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+#: n of (m)'s kernel-against-plain checks, and of the timings
+QUANT_SIZES = (1, 3, 8, 21, 32, 128)
+#: graph replays of (m)'s timings: launches captured per graph, replays timed
+GRAPH_LAUNCHES, GRAPH_REPLAYS = 20, 10
+#: bytes written before each call of a cold timing: 2.5x the H100's 50 MB
+#: L2, so the call reads its operands from HBM, as the bound assumes
+L2_FLUSH_BYTES = 128 << 20
+#: (n) drift of the int8 variant from the fp32 bundle, relative to the
+#: largest |fp32 output| of the kind
+INT8_SERVE_REL = 5e-2
+#: the full-width int8 bundle's resident param bytes (BENCH_quant_r01.json)
+INT8_RESIDENT, FP32_RESIDENT = 28_694_660, 32_260_188
+
+
+def _graph_ms(fn, cold: bool = False) -> float:
+    """Device time of one call of ``fn``: ``GRAPH_LAUNCHES`` calls captured
+    in one CUDA graph, replayed ``GRAPH_REPLAYS`` times between two CUDA
+    events (the host's launch cost is out of the measurement). Warm, the
+    operands stay in the 50 MB L2 between calls. ``cold``: each call comes
+    after an ``L2_FLUSH_BYTES`` fill, so its operands come from HBM; the
+    time is that of fill and call less that of the fill alone."""
+    if cold:
+        scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+        both = _graph_ms(lambda: (scratch.zero_(), fn()))
+        return both - _graph_ms(scratch.zero_)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_LAUNCHES):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(GRAPH_REPLAYS):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (GRAPH_LAUNCHES * GRAPH_REPLAYS)
+
+
+def _quant_bound(n: int, k: int, m: int, with_bias: bool) -> dict:
+    """The least time an H100 could take for one quant_dense call: x (fp32)
+    and W_q (int8) read once, w_scale and b (fp32) read once, y (fp32)
+    written once, at 3.35 TB/s; 2·n·k·m int8 operations at 1,979 TOP/s."""
+    moved = n * k * 4 + k * m + m * 4 * (2 if with_bias else 1) + n * m * 4
+    ops = 2 * n * k * m
+    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+    return {"bytes": moved, "int8_ops": ops, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def _quant_inputs(k: int, act_scale: float, n: int, rng):
+    """``(x, half codes per row)``: (n, k) float32 rows uniform over
+    ±1.2·127·act_scale (past the clip in 1/6 of the range), each row also
+    holding values exactly on half codes (x·float32(1/act_scale) == m + 0.5
+    in float32) and far past ±127·act_scale."""
+    a32, inv = np.float32(act_scale), np.float32(1.0 / act_scale)
+    x = (rng.uniform(-1.2, 1.2, (n, k)) * 127 * act_scale).astype(np.float32)
+    halves = []
+    for code in range(-127, 127):
+        cand = np.float32((code + 0.5) * act_scale)
+        for _ in range(4):
+            if np.float32(cand * inv) == np.float32(code + 0.5):
+                halves.append(cand)
+                break
+            cand = np.nextafter(cand, np.float32(np.inf) if cand * inv < code + 0.5 else np.float32(-np.inf))
+    halves = np.array(halves, np.float32)
+    extremes = np.array([1.0001, 1.5, 3.0, 1e6], np.float32) * np.float32(127) * a32
+    special = np.concatenate([halves, extremes, -extremes])
+    for i in range(n):
+        x[i, : min(k, special.size)] = np.roll(special, i)[:k]
+    return x, halves.size
+
+
+def _phase_quant_kernel(fp32_dir: str, int8_dir: str, card: str) -> dict:
+    """(m) The hand-written ``quant_dense`` kernel against its plain PyTorch
+    version on the card, at both quantized layers of the int8 bundle
+    (``dis_dense_layer_6``: 1152 → 1024, ``dis_output_layer_7``: 1024 → 10)
+    and n in ``QUANT_SIZES``, on inputs with half codes and values past the
+    clip: equal bit for bit. Then, per shape, device times by CUDA-graph
+    replay (``_graph_ms``) of the kernel, the plain version, ``torch._int_mm``
+    with the same quantize and dequantize in torch ops (where ``_int_mm``
+    takes the shape), and the fp32 ``torch.addmm`` of the float layer int8
+    replaces, each with its operands cold in HBM (``cold=True``), beside the
+    bound, which assumes HBM; and the kernel's time with its operands warm
+    in L2, and its eager time per call (CUDA events around one launch, the
+    host's launch cost included)."""
+    from gan_deeplearning4j_tpu_torch.ops import linear
+    from gan_deeplearning4j_tpu_torch.utils.serializer import read_model
+
+    qgraph, qparams, _, _ = read_model(os.path.join(int8_dir, "cv.zip"), device="cuda")
+    _, fparams, _, _ = read_model(os.path.join(fp32_dir, "cv.zip"), device="cuda")
+    rng = np.random.default_rng(SEED)
+    rows, worst = [], 0.0
+    for name in ("dis_dense_layer_6", "dis_output_layer_7"):
+        layer, p = qgraph.vertex(name).layer, qparams[name]
+        a = float(layer.act_scale)
+        k, m = p["W_q"].shape
+        w_col_major = p["W_q"].t().contiguous().t()
+        for n in QUANT_SIZES:
+            host_x, n_halves = _quant_inputs(k, a, n, rng)
+            x = torch.from_numpy(host_x).cuda()
+            y = linear.quant_dense(x, p["W_q"], p["w_scale"], p["b"], a)
+            plain = linear.quant_dense_plain(x, p["W_q"], p["w_scale"], p["b"], a)
+            torch.cuda.synchronize()
+            err = float((y - plain).abs().max())
+            if not torch.equal(y, plain) or y.shape != (n, m):
+                raise AssertionError(f"quant_dense {name} n={n}: kernel differs from plain by {err}")
+            worst = max(worst, err)
+            codes = linear.quantize_activations(x, a)
+            lib_ms, lib_note = None, None
+
+            def library(w=p["W_q"]):
+                acc = torch._int_mm(linear.quantize_activations(x, a), w)
+                scale = p["w_scale"] * torch.full((), a, dtype=torch.float32, device=x.device)
+                return acc.to(torch.float32) * scale + p["b"]
+
+            for w, layout in ((p["W_q"], "row-major"), (w_col_major, "column-major")):
+                try:
+                    lib_y = library(w)
+                    torch.cuda.synchronize()
+                except RuntimeError as exc:
+                    lib_note = f"_int_mm refuses ({layout} W_q): {str(exc).splitlines()[0][:160]}"
+                    continue
+                if not torch.equal(lib_y, plain):
+                    raise AssertionError(f"_int_mm yardstick {name} n={n} differs from plain")
+                lib_ms, lib_note = _graph_ms(lambda w=w: library(w), cold=True), f"_int_mm, {layout} W_q"
+                break
+            w_f32, b_f32 = fparams[name]["W"], fparams[name]["b"]
+            bound = _quant_bound(n, k, m, with_bias=True)
+
+            def kernel():
+                return linear.quant_dense(x, p["W_q"], p["w_scale"], p["b"], a)
+
+            row = {"layer": name, "n": n, "in": k, "out": m, "act_scale": a,
+                   "half_code_inputs_per_row": n_halves,
+                   "codes_at_clip": int((codes.abs() == 127).sum()),
+                   "max_abs_err_vs_plain": err,
+                   "kernel_ms": _graph_ms(kernel, cold=True),
+                   "kernel_l2_warm_ms": _graph_ms(kernel),
+                   "kernel_eager_ms": _event_median_ms(kernel),
+                   "plain_ms": _graph_ms(lambda: linear.quant_dense_plain(x, p["W_q"], p["w_scale"], p["b"], a),
+                                         cold=True),
+                   "library_ms": lib_ms, "library": lib_note,
+                   "addmm_fp32_ms": _graph_ms(lambda: torch.addmm(b_f32, x, w_f32), cold=True),
+                   **bound}
+            row["kernel_share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+            rows.append(row)
+    out = {"phase": "quant_kernel", "shapes": rows, "max_abs_err": worst, "tolerance": "bit-equal",
+           "card": card}
+    for row in rows:
+        print(json.dumps({"phase": "quant_kernel", **row, "card": card}))
+    return out
+
+
+def _code_step(bundle_dir: str) -> float:
+    """The most one moved activation code can change a quantized layer's
+    output by: max over the int8 classifier's layers of
+    127 · max(w_scale) · act_scale."""
+    from gan_deeplearning4j_tpu_torch.quant import QuantDenseLayer
+    from gan_deeplearning4j_tpu_torch.utils.serializer import read_model
+
+    graph, params, _, _ = read_model(os.path.join(bundle_dir, "cv.zip"), device="cpu")
+    return max(127.0 * float(params[v.name]["w_scale"].max()) * v.layer.act_scale
+               for v in graph.vertices if isinstance(v.layer, QuantDenseLayer))
+
+
+#: the profiler range each dense vertex's apply runs in, inside
+#: ``_serving_breakdown``'s second window only
+DENSE_RANGE = "chip_smoke.dense_vertex"
+
+
+@contextlib.contextmanager
+def _dense_ranges():
+    """While the block is open, every dense vertex's apply (``DenseLayer``,
+    ``OutputLayer``, ``QuantDenseLayer``) runs inside a
+    ``record_function(DENSE_RANGE)`` range. The served path carries no range
+    outside the block."""
+    from gan_deeplearning4j_tpu_torch.nn.layers import DenseLayer
+    from gan_deeplearning4j_tpu_torch.quant import QuantDenseLayer
+
+    saved = {cls: cls.__dict__["apply"] for cls in (DenseLayer, QuantDenseLayer)}
+
+    def ranged(apply):
+        def apply_in_range(self, *args, **kwargs):
+            with torch.profiler.record_function(DENSE_RANGE):
+                return apply(self, *args, **kwargs)
+        return apply_in_range
+
+    try:
+        for cls, apply in saved.items():
+            cls.apply = ranged(apply)
+        yield
+    finally:
+        for cls, apply in saved.items():
+            cls.apply = apply
+
+
+def _range_kernels(event) -> list:
+    """The device kernels that the profiler links to a CPU-side event and its
+    children, as ``(name, µs)``; copies, fills, the range's own device
+    annotation and ``quant_dense`` left out (``_serving_breakdown`` counts
+    that one from its device events)."""
+    out = [(k.name, k.duration) for k in event.kernels
+           if k.name != DENSE_RANGE and "quant_dense" not in k.name
+           and not k.name.startswith(("Memcpy", "Memset"))]
+    for child in event.cpu_children:
+        out += _range_kernels(child)
+    return out
+
+
+def _serving_breakdown(engines: dict, runs: int = 10) -> list:
+    """Per engine (fp32 / int8), kind (``classify``, ``features``) and bucket
+    of the ladder: ``engine.run``'s median time by CUDA events, taken in
+    turns (fp32, int8, int8, fp32); then a ``torch.profiler`` window of
+    ``runs`` runs at each bucket tracing the card only: device-busy share,
+    kernels per run, and the device ms per run of the quant_dense kernel.
+    Then a second window, tracing host and card, with every dense vertex in
+    a ``DENSE_RANGE`` range (``_dense_ranges``): the device ms per run of
+    the kernels launched inside the ranges, i.e. of the two dense vertices
+    (their product, bias and activation), fp32 against int8, and how many
+    kernels that is per run."""
+    from gan_deeplearning4j_tpu_torch.serving.profile import _union_us
+
+    rng = np.random.default_rng(SEED)
+    out = []
+    for kind in ("classify", "features"):
+        for bucket in engines["fp32"].buckets:
+            rows = _rows(kind, bucket, rng)
+            row = {"kind": kind, "bucket": bucket}
+            for name in ("fp32", "int8", "int8", "fp32"):
+                ms = _event_median_ms(lambda e=engines[name]: e.run(kind, rows))
+                row.setdefault(f"{name}_run_ms", []).append(ms)
+            for name, engine in engines.items():
+                row[f"{name}_run_ms"] = statistics.median(row[f"{name}_run_ms"])
+                with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    for _ in range(runs):
+                        engine.run(kind, rows)
+                    wall_us = (time.perf_counter() - t0) * 1e6
+                spans, quant_us, launches = [], 0.0, 0
+                for ev in prof.events():
+                    if ev.device_type != torch.autograd.DeviceType.CUDA:
+                        continue
+                    spans.append((ev.time_range.start, ev.time_range.end))
+                    us = ev.time_range.end - ev.time_range.start
+                    if not (ev.name.startswith("Memcpy") or ev.name.startswith("Memset")):
+                        launches += 1
+                        quant_us += us if "quant_dense" in ev.name else 0.0
+                row[f"{name}_device_busy_share"] = _union_us(spans) / wall_us
+                row[f"{name}_kernels_per_run"] = launches / runs
+                row[f"{name}_quant_dense_ms_per_run"] = quant_us / runs / 1e3
+                with _dense_ranges(), torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    for _ in range(runs):
+                        engine.run(kind, rows)
+                events = prof.events()
+                kernels = [k for ev in events
+                           if ev.name == DENSE_RANGE and ev.device_type == torch.autograd.DeviceType.CPU
+                           for k in _range_kernels(ev)]
+                # the profiler links a kernel to a range through the aten op
+                # that launched it; quant_dense is launched through ctypes, by
+                # no op, so it is linked to none. Only the dense ranges launch
+                # it, so its device events are all theirs.
+                kernels += [(ev.name, ev.time_range.end - ev.time_range.start) for ev in events
+                            if ev.device_type == torch.autograd.DeviceType.CUDA and "quant_dense" in ev.name]
+                row[f"{name}_dense_layers_ms_per_run"] = sum(us for _, us in kernels) / runs / 1e3
+                row[f"{name}_dense_layers_kernels_per_run"] = len(kernels) / runs
+                row[f"{name}_dense_layers_kernel_names"] = sorted({k for k, _ in kernels})
+            out.append(row)
+    return out
+
+
+def _phase_int8_serve(fp32_dir: str, int8_dir: str, card: str) -> dict:
+    """(n) The main path of the int8 slice: ``ServingEngine.from_bundle`` of
+    the int8 variant on the card, warmed up, serving ``classify`` and
+    ``features`` through the kernel at the ladder (1, 8, 32, 128), and one
+    HTTP ``classify``. The kernel's launch count is zeroed just before and
+    read just after. Checks: staged ``run`` equals ``run_host``; no first run
+    after warmup; every run launches the kernel twice per chunk (two
+    quantized layers); the card against a CPU engine of the same bundle for
+    n in (1, 3, 8, 21, 130) within ``CPU_TOL`` + two code steps
+    (``_code_step``: the card's float32 convolutions differ from the CPU's in
+    the last ulp, which moves an activation code wherever x / act_scale lies
+    that close to a half code); resident bytes exactly 28,694,660; the
+    generator checkpoint byte-identical to the source's; the drift from the
+    fp32 bundle within ``INT8_SERVE_REL`` of the largest output. Then
+    ``_serving_breakdown`` against the fp32 bundle's engine."""
+    from gan_deeplearning4j_tpu_torch.ops import linear
+    from gan_deeplearning4j_tpu_torch.serving import InferenceService, ServingEngine, make_server
+
+    linear.KERNEL_LAUNCHES["quant_dense"] = 0
+    engine = ServingEngine.from_bundle(int8_dir, device="cuda")
+    engine.warmup()
+    warm_launches = linear.KERNEL_LAUNCHES["quant_dense"]
+    cpu = ServingEngine.from_bundle(int8_dir, device="cpu")
+    fp32 = ServingEngine.from_bundle(fp32_dir, device="cuda")
+    tol = CPU_TOL + 2.0 * _code_step(int8_dir)
+    rng = np.random.default_rng(SEED)
+    vs_cpu, vs_fp32, per_run = {}, {}, set()
+    for kind in ("classify", "features"):
+        for n in SIZES:
+            rows = _rows(kind, n, rng)
+            before = linear.KERNEL_LAUNCHES["quant_dense"]
+            staged = engine.run(kind, rows)
+            per_run.add((linear.KERNEL_LAUNCHES["quant_dense"] - before) / -(-n // engine.buckets[-1]))
+            if not np.array_equal(staged, engine.run_host(kind, rows)) or not np.all(np.isfinite(staged)):
+                raise AssertionError(f"int8 {kind} n={n}: run differs from run_host, or non-finite")
+            ref = cpu.run_host(kind, rows)
+            if staged.shape != ref.shape:
+                raise AssertionError(f"int8 {kind} n={n}: shape {staged.shape} vs {ref.shape}")
+            vs_cpu[kind] = max(vs_cpu.get(kind, 0.0), float(np.max(np.abs(staged - ref))))
+            want = fp32.run(kind, rows)
+            scale = max(float(np.max(np.abs(want))), 1e-6)
+            vs_fp32[kind] = max(vs_fp32.get(kind, 0.0), float(np.max(np.abs(staged - want))) / scale)
+    service = InferenceService(engine, warmup="sync")
+    server = make_server(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        rows = _rows("classify", 5, np.random.default_rng(SEED + 1))
+        status, body, http_s = _post(f"http://127.0.0.1:{server.server_address[1]}", "classify", rows)
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=30)
+    launches = linear.KERNEL_LAUNCHES["quant_dense"]
+    breakdown = _serving_breakdown({"fp32": fp32, "int8": engine})
+    http_rows = np.asarray(body.get("data"))
+    with open(os.path.join(fp32_dir, "gen.zip"), "rb") as a, open(os.path.join(int8_dir, "gen.zip"), "rb") as b:
+        generator_identical = a.read() == b.read()
+    resident = {"int8": engine.resident_param_bytes(), "fp32": fp32.resident_param_bytes()}
+    row = {"phase": "int8_serve", "kernel_launches": launches, "warmup_launches": warm_launches,
+           "launches_per_run_chunk": sorted(per_run), "card_vs_cpu_max_abs_err": vs_cpu,
+           "card_vs_cpu_tolerance": tol, "drift_vs_fp32_rel": vs_fp32,
+           "resident_param_bytes": resident, "generator_byte_identical": generator_identical,
+           "precision": engine.stats()["precision"], "serve_compile_counts": engine.serve_compile_counts,
+           "http_classify": {"status": status, "shape": list(http_rows.shape), "ms": http_s * 1e3},
+           "card": card}
+    print(json.dumps(row))
+    for line in breakdown:
+        print(json.dumps({"phase": "int8_serve_breakdown", **line, "card": card}))
+    row["breakdown"] = breakdown
+    ranged = [(line[f"{name}_dense_layers_kernels_per_run"], line[f"{name}_dense_layers_kernel_names"])
+              for line in breakdown for name in ("fp32", "int8")]
+    if any(count < 2 for count, _ in ranged) or any(
+            not any("quant_dense" in k for k in line["int8_dense_layers_kernel_names"]) for line in breakdown):
+        raise AssertionError(f"int8 serving: the dense-vertex ranges hold too few kernels: {ranged}")
+    if (per_run != {2.0} or warm_launches != 2 * len(engine.buckets) * 2 or launches <= warm_launches
+            or max(vs_cpu.values()) > tol or max(vs_fp32.values()) > INT8_SERVE_REL
+            or resident != {"int8": INT8_RESIDENT, "fp32": FP32_RESIDENT} or not generator_identical
+            or row["precision"] != "int8" or any(engine.serve_compile_counts.values())
+            or status != 200 or http_rows.shape != (5, 10)
+            or np.max(np.abs(http_rows.sum(axis=1) - 1.0)) > 1e-5):
+        raise AssertionError(f"int8 serving: {row}")
+    return row
+
+
+def _confident_dense_bundle(directory: str) -> str:
+    """The tiny fp32 bundle of tests/test_quant.py's canary cases: a dense
+    generator (4 → 8 → 6) and classifier (6 → 5 → 3) whose 2-D weights are
+    drawn wide (numpy, seed 7, × 2), so int8 rounding flips no argmax, and a
+    calibration on rows × 1e9 zeroes every code of its first layer."""
+    from gan_deeplearning4j_tpu_torch.nn import DenseLayer, GraphBuilder, GraphConfig, InputType, OutputLayer
+    from gan_deeplearning4j_tpu_torch.utils import write_model
+
+    os.makedirs(directory, exist_ok=True)
+    g = GraphBuilder(GraphConfig(seed=1))
+    g.add_inputs("z").set_input_types(InputType.feed_forward(4))
+    g.add_layer("g_dense_1", DenseLayer(n_out=8, activation="tanh"), "z")
+    g.add_layer("g_out", OutputLayer(n_out=6, activation="sigmoid", loss="xent"), "g_dense_1")
+    g.set_outputs("g_out")
+    gen = g.build()
+    c = GraphBuilder(GraphConfig(seed=2))
+    c.add_inputs("x").set_input_types(InputType.feed_forward(6))
+    c.add_layer("feat_1", DenseLayer(n_out=5, activation="tanh"), "x")
+    c.add_layer("cv_out", OutputLayer(n_out=3, activation="softmax", loss="mcxent"), "feat_1")
+    c.set_outputs("cv_out")
+    cv = c.build()
+    rng = np.random.default_rng(7)
+    cv_params = {layer: {k: (torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(np.float32) * 2.0)
+                             if t.dim() == 2 else t) for k, t in sorted(leaves.items())}
+                 for layer, leaves in sorted(cv.init(device="cpu").items())}
+    write_model(os.path.join(directory, "gen.zip"), gen, gen.init(device="cpu"), save_updater=False)
+    write_model(os.path.join(directory, "cv.zip"), cv, cv_params, save_updater=False)
+    with open(os.path.join(directory, "serving.json"), "w") as fh:
+        json.dump({"format_version": 1, "generator": "gen.zip", "classifier": "cv.zip",
+                   "feature_vertex": "feat_1", "generation": 0, "step": 0}, fh)
+    return directory
+
+
+def _phase_cost_and_canary(fp32_dir: str, int8_dir: str, directory: str, card: str) -> dict:
+    """(o) ``measure_bundle_cost`` of the fp32 bundle and its bf16 and int8
+    variants on the card (ladder (1, 8, 32, 128), min of 5 rounds): the
+    resident-bytes ratios are exactly 0.5 and 28,694,660 / 32,260,188, and
+    the cost ratios are recorded. Then ``CanaryGate`` (256 seeded samples)
+    against the fp32 incumbent, with labels from the incumbent on
+    synthetic rows: it admits the bf16 and int8 variants of the full-width
+    bundle; and on the tiny dense bundle of tests/test_quant.py, served on
+    the card, it admits the sane int8 variant and rejects the one calibrated
+    on rows × 1e9, with "accuracy" in the reason. (On the full-width
+    classifier rows × 1e9 reach no dense layer: its tanh convolutions
+    saturate; that variant's decision is recorded, not gated.)"""
+    from gan_deeplearning4j_tpu_torch.data import synthetic_mnist
+    from gan_deeplearning4j_tpu_torch.deploy import CanaryGate
+    from gan_deeplearning4j_tpu_torch.quant import build_bf16_variant, build_int8_variant, measure_bundle_cost
+    from gan_deeplearning4j_tpu_torch.serving import ServingEngine
+
+    bf16_dir = os.path.join(directory, "cost_bf16")
+    build_bf16_variant(fp32_dir, bf16_dir)
+    costs = {name: measure_bundle_cost(d, device="cuda")
+             for name, d in (("fp32", fp32_dir), ("bf16", bf16_dir), ("int8", int8_dir))}
+    ratios = {name: {"bytes_ratio": costs[name]["resident_param_bytes"] / costs["fp32"]["resident_param_bytes"],
+                     "cost_ratio": costs[name]["scalar"] / costs["fp32"]["scalar"],
+                     "per_row_s_ratio": costs[name]["per_row_s"] / costs["fp32"]["per_row_s"]}
+              for name in ("bf16", "int8")}
+
+    def decide(candidate_dir, incumbent_dir, rows, labels):
+        incumbent = ServingEngine.from_bundle(incumbent_dir, device="cuda", export_gauge=False)
+        candidate = ServingEngine.from_bundle(candidate_dir, device="cuda", export_gauge=False)
+        gate = CanaryGate(rows, labels, num_samples=256, seed=SEED)
+        decision = gate.evaluate(candidate, incumbent)
+        return {"passed": decision.passed, "reason": decision.reason,
+                "candidate": decision.candidate, "incumbent": decision.incumbent}
+
+    (rows, _), _ = synthetic_mnist(num_train=64, num_test=1, seed=SEED)
+    fp32 = ServingEngine.from_bundle(fp32_dir, device="cuda", export_gauge=False)
+    labels = np.argmax(fp32.run("classify", rows), axis=1)
+    degraded_full = os.path.join(directory, "int8_rows_x1e9")
+    build_int8_variant(fp32_dir, degraded_full, calibration_rows=rows * 1e9)
+    full = {"bf16": decide(bf16_dir, fp32_dir, rows, labels),
+            "int8": decide(int8_dir, fp32_dir, rows, labels),
+            "int8_rows_x1e9": decide(degraded_full, fp32_dir, rows, labels)}
+
+    tiny = _confident_dense_bundle(os.path.join(directory, "tiny_fp32"))
+    tiny_rows = np.random.default_rng(11).random((48, 6)).astype(np.float32)
+    tiny_labels = np.argmax(ServingEngine.from_bundle(tiny, device="cuda").run("classify", tiny_rows), axis=1)
+    build_int8_variant(tiny, os.path.join(directory, "tiny_int8"), calibration_rows=tiny_rows)
+    build_int8_variant(tiny, os.path.join(directory, "tiny_int8_x1e9"), calibration_rows=tiny_rows * 1e9)
+    small = {"int8": decide(os.path.join(directory, "tiny_int8"), tiny, tiny_rows, tiny_labels),
+             "int8_rows_x1e9": decide(os.path.join(directory, "tiny_int8_x1e9"), tiny, tiny_rows, tiny_labels)}
+    row = {"phase": "cost_and_canary",
+           "cost": {name: {k: costs[name][k] for k in ("scalar", "per_row_s", "per_bucket_s",
+                                                         "resident_param_bytes", "precision", "platform")}
+                    for name in costs},
+           "ratios": ratios, "canary_full_width": full, "canary_tiny_dense": small,
+           "tiny_label_counts": np.bincount(tiny_labels, minlength=3).tolist(), "card": card}
+    print(json.dumps(row))
+    if (ratios["bf16"]["bytes_ratio"] != 0.5 or ratios["int8"]["bytes_ratio"] != INT8_RESIDENT / FP32_RESIDENT
+            or any(c["cost_schema"] != 1 or c["platform"] != "gpu" for c in costs.values())
+            or not full["bf16"]["passed"] or not full["int8"]["passed"] or not small["int8"]["passed"]
+            or small["int8_rows_x1e9"]["passed"] or "accuracy" not in small["int8_rows_x1e9"]["reason"]):
+        raise AssertionError(f"cost / canary: {row}")
+    return row
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--json", default=None, help="also write every measurement to this file")
@@ -965,6 +1462,16 @@ def main(argv=None) -> int:
 
     card = _card()
     print(f"card: {card}")
+    # the port's hand-written kernel, built from the checkout's source
+    from gan_deeplearning4j_tpu_torch.ops import _native
+
+    t0 = time.perf_counter()
+    _native.quant_dense()
+    build = {"phase": "kernel_build", "seconds": time.perf_counter() - t0,
+             "libraries": {"quant_dense": os.path.relpath(_native.library_path())},
+             "ptxas": {"quant_dense": [line.strip() for line in _native.build_log().splitlines()
+                                       if "registers" in line or "spill" in line]}}
+    print(json.dumps(build))
     with tempfile.TemporaryDirectory() as directory:
         models = _build_bundle(directory)
         engine = ServingEngine.from_bundle(directory, device="cuda")
@@ -988,8 +1495,13 @@ def main(argv=None) -> int:
             "run_publish": _phase_run_and_publish(make_train, make_test, directory, card),
             "timing": _phase_timing(x, y, card),
         }
-        # each family and bf16 phase runs even when an earlier one failed;
-        # a failure still fails the run
+        # the int8 variant of the serving bundle, for phases (m)-(o)
+        from gan_deeplearning4j_tpu_torch.quant import build_int8_variant
+
+        int8_dir = os.path.join(directory, "int8_variant")
+        build_int8_variant(directory, int8_dir)
+        # each family, bf16 and int8 phase runs even when an earlier one
+        # failed; a failure still fails the run
         families, failed = {}, []
         for key, run in (("card_vs_cpu", lambda: _phase_family_card_vs_cpu(card)),
                          ("resume", lambda: _phase_family_resume(directory, card)),
@@ -999,14 +1511,18 @@ def main(argv=None) -> int:
                          ("bf16_resume", lambda: _phase_bf16_resume(x, y, directory, card)),
                          ("bf16_publish_serve",
                           lambda: _phase_bf16_publish_serve(x, y, directory, directory, card)),
-                         ("bf16_timing", lambda: _phase_bf16_timing(x, y, card))):
+                         ("bf16_timing", lambda: _phase_bf16_timing(x, y, card)),
+                         ("quant_kernel", lambda: _phase_quant_kernel(directory, int8_dir, card)),
+                         ("int8_serve", lambda: _phase_int8_serve(directory, int8_dir, card)),
+                         ("cost_and_canary",
+                          lambda: _phase_cost_and_canary(directory, int8_dir, directory, card))):
             try:
                 families[key] = run()
             except Exception:  # reported, and the run fails below
                 traceback.print_exc()
                 failed.append(key)
     if failed:
-        print(f"chip_smoke: family / bf16 phases failed: {failed}", file=sys.stderr)
+        print(f"chip_smoke: family / bf16 / int8 phases failed: {failed}", file=sys.stderr)
         return 1
     top = engine.buckets[-1]
     for row in ladder:
@@ -1020,16 +1536,25 @@ def main(argv=None) -> int:
         with open(args.json, "w") as fh:
             json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                        "parity": errs, "http": http, "warmup_s": warmup_s, "ladder": ladder,
-                       "training": training, "families": families}, fh, indent=2)
-    print(json.dumps({"kernels": [], "reason": (
-        "the JAX package has no Pallas kernel (no pl.pallas_call anywhere in the repo); "
-        "the serving path and the training of every family (mnist, tabular, image, "
-        "wgan_gp), in fp32 and in bf16 (mixed precision and bf16 storage, and bf16 "
-        "bundles served), run convolutions, transposed convolutions, GEMMs, pooling, "
-        "their backward passes and the gradient penalty's double backward through "
-        "PyTorch (cuDNN, cuBLAS incl. its bf16 GEMM with an fp32 output, ATen) by "
-        "autograd, and the optimizer updates as torch ops, as the JAX package leaves "
-        "them to XLA")}))
+                       "training": training, "families": families, "kernel_build": build},
+                      fh, indent=2)
+    quant = families["quant_kernel"]
+    top = next(r for r in quant["shapes"] if r["layer"] == "dis_dense_layer_6" and r["n"] == 128)
+    print(json.dumps({"kernels": [{
+        "name": "quant_dense", "route": "cuda",
+        "source": "gan_deeplearning4j_tpu_torch/csrc/quant_dense.cu",
+        "replaces": "gan_deeplearning4j_tpu/ops/linear.py:34",
+        "launches": families["int8_serve"]["kernel_launches"],
+        "max_abs_err": quant["max_abs_err"], "ms": top["kernel_ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+        "shape": "x (128, 1152) fp32 · W_q (1152, 1024) int8 (dis_dense_layer_6)",
+        "addmm_fp32_ms": top["addmm_fp32_ms"], "ms_l2_warm": top["kernel_l2_warm_ms"],
+        "eager_ms": top["kernel_eager_ms"]}],
+        "reason": (
+            "the JAX package has no Pallas kernel (no pl.pallas_call anywhere in the repo); "
+            "its one op that stock torch cannot fuse, the int8 quant_dense (XLA-lowered), "
+            "is the port's one hand-written kernel; every other op runs through PyTorch "
+            "(cuDNN, cuBLAS, ATen), as the JAX package leaves it to XLA")}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

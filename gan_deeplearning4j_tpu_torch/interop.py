@@ -17,7 +17,9 @@ shape and dtype for dtype against a fresh ``GraphOptimizer(graph).init``,
 except that a float slot may be in either storage dtype (under bf16
 storage, Adam leaves a step with float32 params and bf16 moments).
 
-Leaves may be numpy arrays (including ``ml_dtypes`` bfloat16 arrays, as
+Param leaves are float32, bfloat16 or int8 (a quantized layer's ``W_q``,
+which stays int8 on the device). Leaves may be numpy arrays (including
+``ml_dtypes`` bfloat16 arrays, as
 ``np.asarray`` gives them for a bf16 JAX array) or CPU tensors (the
 serializer decodes bf16 members straight into tensors: numpy has no
 bfloat16 of its own).
@@ -32,8 +34,11 @@ import torch
 
 from gan_deeplearning4j_tpu_torch.runtime.device import DeviceLike, resolve_device
 
-#: the storage dtypes the reference writes params in
-_STORAGE_DTYPES = (torch.float32, torch.bfloat16)
+#: the float storage dtypes the reference writes params and updater state in
+_FLOAT_STORAGE_DTYPES = (torch.float32, torch.bfloat16)
+#: every param storage dtype: int8 is a quantized layer's ``W_q``, kept
+#: int8 on the device
+_STORAGE_DTYPES = _FLOAT_STORAGE_DTYPES + (torch.int8,)
 
 
 def leaf_to_tensor(value) -> torch.Tensor:
@@ -123,7 +128,7 @@ def train_state_from_numpy(state, device: DeviceLike, *, graph):
                 # param's: under bf16 storage Adam promotes the params to
                 # float32 one step before their moments (optim/updaters.py)
                 dtype_ok = t.dtype == ref.dtype or (
-                    ref.dtype in _STORAGE_DTYPES and t.dtype in _STORAGE_DTYPES)
+                    ref.dtype in _FLOAT_STORAGE_DTYPES and t.dtype in _FLOAT_STORAGE_DTYPES)
                 if tuple(t.shape) != tuple(ref.shape) or not dtype_ok:
                     raise ValueError(
                         f"{layer}/{pname}/{slot}: graph wants {tuple(ref.shape)} {ref.dtype}, "

@@ -1,8 +1,8 @@
 """Layer configs of the PyTorch port — counterpart of
 ``gan_deeplearning4j_tpu/nn/layers.py``: Dense, Output, Loss,
 BatchNormalization, Convolution, Deconvolution2D, Subsampling (max and
-average), Upsampling2D, Activation and Dropout. The int8
-``QuantDenseLayer`` waits for ROADMAP.md queue 1, 'Quantization'.
+average), Upsampling2D, Activation and Dropout; the int8
+``QuantDenseLayer`` lives in ``quant/layers.py`` and resolves lazily.
 
 Each layer is a frozen config dataclass with the same fields, and so the
 same ``to_dict`` schema, as its JAX counterpart:
@@ -353,20 +353,27 @@ _LAYER_CLASSES = {
     )
 }
 
-#: layer types of the JAX package that the port does not run yet, and the
-#: ROADMAP.md queue that brings each
-_NOT_YET_PORTED = {
-    "QuantDenseLayer": "queue 1, 'Quantization', and queue 2 (quant_dense)",
+#: layer types owned by optional subsystems, resolved on first use, so an
+#: int8 topology round-trips without nn/ importing quant/
+_EXTERNAL_LAYER_MODULES = {
+    "QuantDenseLayer": "gan_deeplearning4j_tpu_torch.quant.layers",
 }
+
+
+def register_layer(cls):
+    """Register a Layer subclass for :func:`layer_from_dict` (the extension
+    point ``quant/`` registers through). Usable as a class decorator."""
+    _LAYER_CLASSES[cls.__name__] = cls
+    return cls
 
 
 def layer_from_dict(d: dict) -> Layer:
     d = dict(d)
     kind = d.pop("type")
-    if kind in _NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"layer type {kind!r} is not ported yet: ROADMAP.md {_NOT_YET_PORTED[kind]}"
-        )
+    if kind not in _LAYER_CLASSES and kind in _EXTERNAL_LAYER_MODULES:
+        import importlib
+
+        importlib.import_module(_EXTERNAL_LAYER_MODULES[kind])
     if kind not in _LAYER_CLASSES:
         raise KeyError(f"unknown layer type {kind!r}")
     if d.get("updater") is not None:

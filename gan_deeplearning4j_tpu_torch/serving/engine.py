@@ -32,10 +32,14 @@ bucket of the ladder, so the device only ever sees bucket shapes.
   ``precision: "bf16"`` bundle (``quant/variants.py::build_bf16_variant``)
   runs every forward pass inside ``compute_dtype_scope(bfloat16)``: the
   dense and convolution products in bf16 with fp32 accumulation, on half
-  the resident param bytes (``resident_param_bytes()``).
+  the resident param bytes (``resident_param_bytes()``). A
+  ``precision: "int8"`` bundle (``quant/variants.py::build_int8_variant``)
+  needs no scope: it computes in fp32, and its ``QuantDenseLayer``s keep
+  their int8 ``W_q`` on the device (one byte each) and run the
+  hand-written ``quant_dense`` kernel on the card.
 
-Not yet ported (ROADMAP.md queue 1): int8 bundles ("Quantization");
-conditional zoo bundles ("Class conditioning"); more than one replica and
+Not yet ported (ROADMAP.md queue 1): conditional zoo bundles ("Class
+conditioning"); more than one replica and
 the mesh bulk lane, CUDA-graph capture, the shared staging pool of the mux
 plane ("Serving, the rest"). A bundle that needs one of them is refused at
 load.
@@ -76,10 +80,9 @@ _POOL_LIMIT = 4
 
 def _refuse_unported(precision: Optional[str], scenario: Optional[dict]) -> None:
     """Raise for a bundle this slice of the port cannot serve faithfully."""
-    if precision not in (None, "fp32", "bf16"):
-        raise NotImplementedError(
-            f"{precision!r} serving bundles are not ported yet: ROADMAP.md "
-            f"queue 1, 'Quantization'"
+    if precision not in (None, "fp32", "bf16", "int8"):
+        raise ValueError(
+            f"unknown serving precision {precision!r} (fp32, bf16 or int8)"
         )
     if scenario and scenario.get("conditioning") == "class":
         raise NotImplementedError(
@@ -141,6 +144,7 @@ class ServingEngine:
         precision: Optional[str] = None,
         scenario: Optional[dict] = None,
         device: DeviceLike = None,
+        export_gauge: bool = True,
     ):
         if not models:
             raise ValueError("ServingEngine needs at least one model")
@@ -160,7 +164,8 @@ class ServingEngine:
         self.generation = generation
         self.precision = precision
         # a bf16 bundle computes its products in bf16; every other bundle
-        # in fp32 (None pins it, whatever the calling thread's scope)
+        # (int8 too: its quantized layers carry their own dtypes) in fp32
+        # (None pins it, whatever the calling thread's scope)
         self._compute_dtype = torch.bfloat16 if precision == "bf16" else None
         buckets = tuple(sorted(set(int(b) for b in buckets)))
         if not buckets or buckets[0] < 1:
@@ -173,10 +178,10 @@ class ServingEngine:
         for role, (_, params) in models.items():
             for layer, leaves in params.items():
                 for name, t in leaves.items():
-                    if t.dtype not in (torch.float32, torch.bfloat16):
-                        raise NotImplementedError(
-                            f"{role} param {layer}/{name} is {t.dtype}: only fp32 and "
-                            f"bf16 leaves are ported yet (ROADMAP.md queue 1, 'Quantization')"
+                    if t.dtype not in (torch.float32, torch.bfloat16, torch.int8):
+                        raise ValueError(
+                            f"{role} param {layer}/{name} is {t.dtype}: a bundle's leaves "
+                            f"are float32, bfloat16 or int8"
                         )
             self._params[role] = {
                 layer: {name: t.to(self.device) for name, t in leaves.items()}
@@ -241,7 +246,8 @@ class ServingEngine:
             "serving_generation",
             "store generation of the served bundle (-1 = unversioned)",
         )
-        self.export_generation()
+        if export_gauge:
+            self.export_generation()
         self._staging: Dict[Tuple[str, int], List[_StagingBuf]] = {}
         self._outstanding = 0  # dispatched-but-unfinalized flushes
         self._dispatches = 0
@@ -271,6 +277,7 @@ class ServingEngine:
         precision: Optional[str] = None,
         scenario: Optional[dict] = None,
         device: DeviceLike = None,
+        export_gauge: bool = True,
     ) -> "ServingEngine":
         """Restore from serializer checkpoint zips. Updater state is never
         loaded — a serving replica has no optimizer."""
@@ -287,17 +294,20 @@ class ServingEngine:
                 models[role] = (graph, params)
         return cls(models, buckets=buckets, feature_vertex=feature_vertex,
                    replicas=replicas, generation=generation,
-                   precision=precision, scenario=scenario, device=dev)
+                   precision=precision, scenario=scenario, device=dev,
+                   export_gauge=export_gauge)
 
     @classmethod
     def from_bundle(
         cls, directory: str, *, buckets: Optional[Sequence[int]] = None,
-        replicas=1, device: DeviceLike = None,
+        replicas=1, device: DeviceLike = None, export_gauge: bool = True,
     ) -> "ServingEngine":
         """Load a ``serving.json`` bundle (as the JAX package's
         ``GanExperiment.publish_for_serving`` writes it). ``buckets=None``
         resolves the bundle's learned ladder when the manifest carries one,
-        else :data:`DEFAULT_BUCKETS`."""
+        else :data:`DEFAULT_BUCKETS`. ``export_gauge=False`` builds an
+        engine off to the side (a cost measurement, a canary candidate)
+        without claiming the ``serving_generation`` gauge."""
         from gan_deeplearning4j_tpu_torch.serving.ladder import manifest_ladder
 
         with open(os.path.join(directory, "serving.json")) as fh:
@@ -324,6 +334,7 @@ class ServingEngine:
             precision=manifest.get("precision"),
             scenario=manifest.get("zoo"),
             device=device,
+            export_gauge=export_gauge,
         )
 
     # -- introspection ------------------------------------------------------
@@ -392,8 +403,9 @@ class ServingEngine:
         return self._warm_error is not None
 
     def resident_param_bytes(self) -> int:
-        """Device bytes this engine's params pin (one replica): a bf16
-        bundle's are half an fp32 one's."""
+        """Device bytes this engine's params pin (one replica), each leaf at
+        its own element size: a bf16 bundle's are half an fp32 one's, and an
+        int8 bundle's ``W_q`` count one byte each."""
         return sum(t.numel() * t.element_size()
                    for params in self._params.values()
                    for leaves in params.values() for t in leaves.values())

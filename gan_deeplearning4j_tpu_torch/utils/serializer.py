@@ -10,7 +10,8 @@ A checkpoint is one zip holding:
 - ``meta.json`` — format version, step, and a sha256 digest per member.
 
 bfloat16 leaves travel as uint16 bit patterns, with the real dtype
-recorded in ``meta.json``'s ``array_dtypes``. Only numpy and zipfile touch
+recorded in ``meta.json``'s ``array_dtypes``; int8 leaves (a quantized
+layer's ``W_q``) are npz's own int8 and load as int8. Only numpy and zipfile touch
 the bytes, so a zip written by either package loads in the other.
 """
 

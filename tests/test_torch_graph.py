@@ -146,9 +146,10 @@ def test_params_from_numpy_checks_keys_shapes_and_dtypes():
 
 
 def test_training_mode_and_unported_layers_raise():
-    # train=True runs now (tests/test_torch_train.py), and a dropout layer
-    # builds (tests/test_torch_family_ops.py); a topology with a layer or a
-    # vertex the port lacks still refuses to build, naming its ROADMAP item
+    # train=True runs now (tests/test_torch_train.py), a dropout layer
+    # builds (tests/test_torch_family_ops.py) and so does QuantDenseLayer; a
+    # topology with a vertex the port lacks still refuses to build, naming
+    # its ROADMAP item
     topology = pt_models.build_generator().to_dict()
     topology["nodes"][1]["layer"] = {"type": "DropoutLayer", "rate": 0.5}
     assert isinstance(PtGraph.from_dict(topology).vertices[1].layer, pt_layers.DropoutLayer)
@@ -156,7 +157,9 @@ def test_training_mode_and_unported_layers_raise():
                             "vertex": {"type": "MergeVertex"}}
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'Other families'"):
         PtGraph.from_dict(topology)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt_layers.layer_from_dict({"type": "QuantDenseLayer", "n_out": 4})
+    # the int8 QuantDenseLayer builds, resolved lazily from quant/layers.py
+    quant = pt_layers.layer_from_dict({"type": "QuantDenseLayer", "n_out": 4, "act_scale": 0.5})
+    assert type(quant).__name__ == "QuantDenseLayer" and quant.act_scale == 0.5
+    assert pt_layers.layer_from_dict(quant.to_dict()) == quant
     with pytest.raises(KeyError, match="unknown layer type"):
         pt_layers.layer_from_dict({"type": "Bogus"})

@@ -209,7 +209,7 @@ def test_full_width_dcgan_bundle_serves_like_the_jax_graphs(tmp_path):
 
 @pytest.mark.parametrize("extra,ok", [
     ({"precision": "bf16"}, True),
-    ({"precision": "int8"}, False),
+    ({"precision": "int8"}, True),
     ({"zoo": {"conditioning": "class", "num_classes": 10, "z_size": 2}}, False),
     ({"zoo": {"conditioning": "none", "dataset": "mnist"}}, True),
     ({"ladder": {"buckets": [2, 16]}}, True),
@@ -231,6 +231,10 @@ def test_bundles_this_slice_refuses_or_loads(tmp_path, tiny_bundle, extra, ok):
     eng = ServingEngine.from_bundle(directory, device="cpu")
     assert eng.buckets == tuple(extra.get("ladder", {}).get("buckets", (1, 8, 32, 128)))
     assert eng.stats()["precision"] == extra.get("precision", "fp32")
+    # it serves: an fp32-leaved bundle computes in fp32 whatever it declares
+    # (the JAX engine's rule; int8 variants are tests/test_torch_quant.py's)
+    probs = eng.run("classify", np.random.default_rng(3).random((3, FEAT), dtype=np.float32))
+    assert probs.shape == (3, CLASSES) and np.allclose(probs.sum(-1), 1.0, atol=1e-5)
 
 
 def test_more_than_one_replica_is_refused(engine):
@@ -328,6 +332,12 @@ def test_importing_the_port_loads_no_jax():
         "import gan_deeplearning4j_tpu_torch.optim\n"
         "import gan_deeplearning4j_tpu_torch.parallel\n"
         "import gan_deeplearning4j_tpu_torch.zoo\n"
+        "import gan_deeplearning4j_tpu_torch.quant\n"
+        "import gan_deeplearning4j_tpu_torch.quant.bench\n"
+        "import gan_deeplearning4j_tpu_torch.deploy\n"
+        "import gan_deeplearning4j_tpu_torch.eval.fid\n"
+        "import gan_deeplearning4j_tpu_torch.eval.quality\n"
+        "import gan_deeplearning4j_tpu_torch.ops._native\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'gan_deeplearning4j_tpu' or m.startswith('gan_deeplearning4j_tpu.')]\n"
         "assert not bad, bad\n"
