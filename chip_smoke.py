@@ -95,7 +95,12 @@ m. the ``quant_dense`` kernel against its plain PyTorch version at both
    plain version, ``torch._int_mm`` with the same quantize and dequantize
    (a yardstick, where it takes the shape) and the fp32 ``addmm`` of the
    float layer, beside the bound (bytes at 3.35 TB/s, int8 operations at
-   1,979 TOP/s); the kernel's time with its operands warm in L2 beside;
+   1,979 TOP/s); the kernel's time with its operands warm in L2, and its
+   eager time per call (CUDA events around one call, the wrapper's host
+   time included), beside; the launch plan of each shape
+   (``ops/linear.py::quant_dense_plan``: route, strip, cluster, K-chunk,
+   row tile, CTAs, shared memory) and what ``ptxas`` said of each kernel
+   instance (registers, static shared memory, spills);
 n. the main path: the int8 bundle served on the card (launch count zeroed
    before, read after): staged ``run`` equals ``run_host``, two launches
    per run chunk, no first run after warmup, card vs CPU within two code
@@ -121,9 +126,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1042,6 +1049,26 @@ def _quant_bound(n: int, k: int, m: int, with_bias: bool) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def _ptxas_by_kernel(log: str) -> dict:
+    """What ``ptxas -v`` said of each instance of the kernel (``nt`` =
+    8-row groups per row tile): registers, static shared memory and spill
+    bytes. The kernel's shared memory is dynamic: the plan's
+    ``smem_bytes``."""
+    out, current = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '.*quant_dense_kernelILi(\d+)E", line)
+        if entry:
+            current = out.setdefault(f"nt={entry.group(1)}", {})
+        elif current is not None and "spill stores" in line:
+            stores, loads = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
+            current.update(spill_store_bytes=int(stores), spill_load_bytes=int(loads))
+        elif current is not None and "Used" in line and "registers" in line:
+            current["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            current["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    return out
+
+
 def _quant_inputs(k: int, act_scale: float, n: int, rng):
     """``(x, half codes per row)``: (n, k) float32 rows uniform over
     ±1.2·127·act_scale (past the clip in 1/6 of the range), each row also
@@ -1077,8 +1104,10 @@ def _phase_quant_kernel(fp32_dir: str, int8_dir: str, card: str) -> dict:
     replaces, each with its operands cold in HBM (``cold=True``), beside the
     bound, which assumes HBM; and the kernel's time with its operands warm
     in L2, and its eager time per call (CUDA events around one launch, the
-    host's launch cost included)."""
-    from gan_deeplearning4j_tpu_torch.ops import linear
+    host's launch cost included). Each row carries the shape's launch plan;
+    the phase carries ``ptxas``'s registers, static shared memory and
+    spills per kernel instance (``_ptxas_by_kernel``)."""
+    from gan_deeplearning4j_tpu_torch.ops import _native, linear
     from gan_deeplearning4j_tpu_torch.utils.serializer import read_model
 
     qgraph, qparams, _, _ = read_model(os.path.join(int8_dir, "cv.zip"), device="cuda")
@@ -1125,7 +1154,9 @@ def _phase_quant_kernel(fp32_dir: str, int8_dir: str, card: str) -> dict:
             def kernel():
                 return linear.quant_dense(x, p["W_q"], p["w_scale"], p["b"], a)
 
+            plan = linear.quant_dense_plan(n, k, m)
             row = {"layer": name, "n": n, "in": k, "out": m, "act_scale": a,
+                   "plan": {**dataclasses.asdict(plan), "ctas": plan.ctas},
                    "half_code_inputs_per_row": n_halves,
                    "codes_at_clip": int((codes.abs() == 127).sum()),
                    "max_abs_err_vs_plain": err,
@@ -1140,7 +1171,8 @@ def _phase_quant_kernel(fp32_dir: str, int8_dir: str, card: str) -> dict:
             row["kernel_share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
             rows.append(row)
     out = {"phase": "quant_kernel", "shapes": rows, "max_abs_err": worst, "tolerance": "bit-equal",
-           "card": card}
+           "ptxas": _ptxas_by_kernel(_native.build_log()), "card": card}
+    print(json.dumps({"phase": "quant_kernel_ptxas", "ptxas": out["ptxas"], "card": card}))
     for row in rows:
         print(json.dumps({"phase": "quant_kernel", **row, "card": card}))
     return out

@@ -28,6 +28,7 @@ import os
 import shutil
 import subprocess
 import threading
+import types
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(_CSRC, "build")
@@ -36,16 +37,22 @@ _SOURCE = os.path.join(_CSRC, "quant_dense.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: gdt_quant_dense_f32(x, w_q, w_scale, b, y, n, k, m, inv_act_scale,
-#: act_scale, vectorized, stream) -> cudaError_t
-_ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-    ctypes.c_int, ctypes.c_void_p,
-]
+#: the library's C entry points: (argtypes, restype)
+_ENTRY_POINTS = {
+    # (w_q, w_scale, b, k, m, inv_act_scale, act_scale, route, strip,
+    #  cluster, k_chunk, box_k, boxes, &err) -> layer handle or NULL
+    "layer_new": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+                  ctypes.c_void_p),
+    "layer_free": ([ctypes.c_void_p], None),
+    # (layer, x, y, n, nt, row_tiles, smem_bytes, stream) -> cudaError_t
+    "run": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
+}
 
 _lock = threading.Lock()
-_loaded = None  # the loaded C function, after the first call
+_loaded = None  # the loaded C entry points, after the first call
 
 
 def nvcc_path() -> str:
@@ -101,17 +108,21 @@ def build_log() -> str:
         return fh.read()
 
 
-def quant_dense():
-    """The kernel's C entry point (argtypes and restype set), its library
-    built and loaded first when missing."""
+def quant_dense() -> types.SimpleNamespace:
+    """The kernel's C entry points ``layer_new``, ``layer_free`` and ``run``
+    (``csrc/quant_dense.cu``; argtypes and restype set), its library built
+    and loaded first when missing."""
     global _loaded
     with _lock:
         if _loaded is None:
             target = library_path()
             if not os.path.exists(target):
                 _build(target)
-            fn = ctypes.CDLL(target).gdt_quant_dense_f32
-            fn.argtypes = _ARGTYPES
-            fn.restype = ctypes.c_int
-            _loaded = fn
+            lib = ctypes.CDLL(target)
+            entry = {}
+            for name, (argtypes, restype) in _ENTRY_POINTS.items():
+                fn = getattr(lib, f"gdt_quant_dense_{name}")
+                fn.argtypes, fn.restype = argtypes, restype
+                entry[name] = fn
+            _loaded = types.SimpleNamespace(**entry)
         return _loaded

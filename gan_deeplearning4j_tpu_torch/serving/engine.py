@@ -36,7 +36,9 @@ bucket of the ladder, so the device only ever sees bucket shapes.
   ``precision: "int8"`` bundle (``quant/variants.py::build_int8_variant``)
   needs no scope: it computes in fp32, and its ``QuantDenseLayer``s keep
   their int8 ``W_q`` on the device (one byte each) and run the
-  hand-written ``quant_dense`` kernel on the card.
+  hand-written ``quant_dense`` kernel on the card. Any other ``precision``
+  string (``"fp16"``, say) is recorded and served in fp32, as the JAX
+  engine serves it.
 
 Not yet ported (ROADMAP.md queue 1): conditional zoo bundles ("Class
 conditioning"); more than one replica and
@@ -78,12 +80,8 @@ DEFAULT_BUCKETS = (1, 8, 32, 128)
 _POOL_LIMIT = 4
 
 
-def _refuse_unported(precision: Optional[str], scenario: Optional[dict]) -> None:
+def _refuse_unported(scenario: Optional[dict]) -> None:
     """Raise for a bundle this slice of the port cannot serve faithfully."""
-    if precision not in (None, "fp32", "bf16", "int8"):
-        raise ValueError(
-            f"unknown serving precision {precision!r} (fp32, bf16 or int8)"
-        )
     if scenario and scenario.get("conditioning") == "class":
         raise NotImplementedError(
             "conditional zoo bundles (sample?class=k) are not ported yet: "
@@ -148,7 +146,7 @@ class ServingEngine:
     ):
         if not models:
             raise ValueError("ServingEngine needs at least one model")
-        _refuse_unported(precision, scenario)
+        _refuse_unported(scenario)
         # "all" (or None) is every device the engine may route to:
         # torch.cuda.device_count() capped at one until the multi-GPU slice
         if replicas not in (None, "all", 1):
@@ -283,7 +281,7 @@ class ServingEngine:
         loaded — a serving replica has no optimizer."""
         from gan_deeplearning4j_tpu_torch.utils.serializer import read_model
 
-        _refuse_unported(precision, scenario)
+        _refuse_unported(scenario)
         dev = resolve_device(device)
         models = {}
         with TRACER.span("serve.engine.restore", generation=generation):

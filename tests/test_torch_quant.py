@@ -235,6 +235,54 @@ def test_the_kernel_wrapper_refuses_what_the_kernel_does_not_take():
         pt_linear._quant_dense_cuda(x, w_q.t().contiguous().t(), w_scale, b, a)
 
 
+def test_the_kernel_wrapper_refuses_weights_it_would_misread_before_touching_cuda():
+    """A W_q view off the 16-byte alignment the kernel's copies need, and
+    weights on the host under a CUDA x, raise before any build or launch."""
+    x, w_q, w_scale, b, a = (_t(v) if isinstance(v, np.ndarray) else v for v in _case("random"))
+    k, m = w_q.shape
+    flat = torch.zeros(k * m + 1, dtype=torch.int8)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pt_linear._quant_dense_cuda(x, flat[1:].view(k, m), w_scale, b, a)
+    with pytest.raises(ValueError, match="x's device"):
+        pt_linear._quant_dense_cuda(x, w_q, w_scale, b, a)
+
+
+@pytest.mark.parametrize("n", [1, 3, 8, 21, 32, 128, 130])
+@pytest.mark.parametrize("k,m", [(1152, 1024), (1024, 10), (6, 5), (37, 12)])
+def test_the_kernel_launch_plan_covers_every_k_row_and_column_once(k, m, n):
+    """The plan the wrapper passes the kernel (``quant_dense_plan``), at the
+    int8 bundle's two quantized layers and two ragged shapes: the K-chunks
+    tile K (each a multiple of 32 long, none empty, so every k is summed
+    exactly once), the row tiles and strips cover n and N, clusters stay
+    within the portable 8, TMA is the route exactly where a W_q row is a
+    multiple of 16 bytes, and a CTA's shared memory fits the H100's 227 KB."""
+    plan = pt_linear.quant_dense_plan(n, k, m)
+    chunks = [(r * plan.k_chunk, min(k, (r + 1) * plan.k_chunk)) for r in range(plan.cluster)]
+    covered = np.zeros(k, np.int64)
+    for start, stop in chunks:
+        assert start < stop <= start + plan.k_chunk
+        covered[start:stop] += 1
+    assert np.all(covered == 1)
+    assert plan.k_chunk % 32 == 0 and chunks[-1][1] == k
+    assert 1 <= plan.cluster <= 8
+    assert plan.route == ("tma" if m % 16 == 0 else "bulk")
+    if plan.route == "tma":
+        assert plan.boxes * plan.box_k >= plan.k_chunk and plan.box_k <= 256
+    else:
+        assert plan.strips == 1
+    assert plan.strip in (16, 32, 64) and (plan.strips - 1) * plan.strip < m <= plan.strips * plan.strip
+    assert (plan.row_tiles - 1) * 8 * plan.nt < n <= plan.row_tiles * 8 * plan.nt
+    assert plan.smem_bytes <= 227 * 1024
+    assert plan.ctas == plan.strips * plan.cluster * plan.row_tiles
+    if (k, m) == (1152, 1024):
+        assert plan.ctas >= 128
+
+
+def test_the_kernel_launch_plan_refuses_a_ragged_wide_output():
+    with pytest.raises(ValueError, match="Quantization"):
+        pt_linear.quant_dense_plan(1, 64, 100)
+
+
 def test_the_kernel_builds_from_the_repo_sources_into_an_ignored_directory(monkeypatch):
     path = _native.library_path()
     assert os.path.dirname(path) == os.path.join(REPO, "gan_deeplearning4j_tpu_torch", "csrc", "build")

@@ -213,8 +213,14 @@ def test_full_width_dcgan_bundle_serves_like_the_jax_graphs(tmp_path):
     ({"zoo": {"conditioning": "class", "num_classes": 10, "z_size": 2}}, False),
     ({"zoo": {"conditioning": "none", "dataset": "mnist"}}, True),
     ({"ladder": {"buckets": [2, 16]}}, True),
+    ({"precision": "fp16"}, True),
 ])
 def test_bundles_this_slice_refuses_or_loads(tmp_path, tiny_bundle, extra, ok):
+    """Each bundle loads in the port as it loads in the JAX engine, or is
+    refused naming its ROADMAP item. A loaded one serves every kind as the
+    JAX engine does, within the file's tolerance, and reports the same
+    precision: a precision the engines do not know ("fp16") is recorded and
+    served in fp32, as the reference serves it."""
     directory = str(tmp_path / "b")
     os.makedirs(directory)
     for name in ("gen.zip", "cv.zip"):
@@ -229,12 +235,18 @@ def test_bundles_this_slice_refuses_or_loads(tmp_path, tiny_bundle, extra, ok):
             ServingEngine.from_bundle(directory, device="cpu")
         return
     eng = ServingEngine.from_bundle(directory, device="cpu")
+    ref = JaxEngine.from_bundle(directory)
     assert eng.buckets == tuple(extra.get("ladder", {}).get("buckets", (1, 8, 32, 128)))
-    assert eng.stats()["precision"] == extra.get("precision", "fp32")
+    assert eng.stats()["precision"] == ref.stats()["precision"] == extra.get("precision", "fp32")
     # it serves: an fp32-leaved bundle computes in fp32 whatever it declares
     # (the JAX engine's rule; int8 variants are tests/test_torch_quant.py's)
     probs = eng.run("classify", np.random.default_rng(3).random((3, FEAT), dtype=np.float32))
     assert probs.shape == (3, CLASSES) and np.allclose(probs.sum(-1), 1.0, atol=1e-5)
+    assert set(eng.kinds) == set(ref.kinds) == {"sample", "classify", "features"}
+    rng = np.random.default_rng(4)
+    for kind in eng.kinds:
+        rows = rng.standard_normal((5, eng.input_width(kind))).astype(np.float32)
+        np.testing.assert_allclose(eng.run(kind, rows), ref.run(kind, rows), **TOL)
 
 
 def test_more_than_one_replica_is_refused(engine):
