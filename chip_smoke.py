@@ -21,7 +21,10 @@ any phase fails. First the serving path:
    and the HTTP round trip.
 
 Then the training path (``GanExperiment``, the reference's settings, data
-from ``prepare_mnist(source="synthetic")``):
+from ``prepare_mnist(source="synthetic")``). On the card every iteration
+of (a)-(l) goes through the captured path (``harness/graphs.py``): a
+window of K iterations is K replays of one CUDA graph per entry, and
+``train_iteration`` a window of one:
 
 a. the same init on the card and on the CPU, 2 fused iterations at batch
    64 on both with the same z: the card-vs-CPU errors of losses, params,
@@ -41,8 +44,9 @@ d. timing at batch 200 without checkpoints: the median iteration over 20
    images/s, peak memory, a ``torch.profiler`` window of 5 iterations
    (device-busy share, top 10 kernels), a second window with host
    activity that splits the iteration by stage (``iteration.*`` and
-   ``step.*`` ranges, host and device time), and the fp32 bound of the
-   iteration's convolution and GEMM FLOPs at 67 TFLOP/s.
+   ``step.*`` ranges, host and device time; a replay runs no host code,
+   so this window runs the device body uncaptured), and the fp32 bound of
+   the iteration's convolution and GEMM FLOPs at 67 TFLOP/s.
 
 Then the other families at full width (``FAMILIES``: the JAX bench's
 configs 2-5, fp32), on synthetic rows from each family's own source:
@@ -81,6 +85,28 @@ l. timing as in (h) under mixed precision: MNIST b200, tabular b256 and
    b4096, ``cifar10`` b64, ``celeba64`` b64, ``wgan_gp`` b320, with copy
    (cast) kernels counted and the roofline share against the dense bf16
    tensor-core peak (989 TFLOP/s).
+
+Then the device loop, the port of the JAX package's ``_build_multi_iteration``:
+
+p. windows bit for bit: for MNIST b200 (fp32, mixed bf16, bf16 storage),
+   tabular b256, ``cifar10`` b64 and ``wgan_gp`` b320 (fp32 and mixed
+   bf16; the gradient penalty's double backward inside the graph), 9
+   iterations from one init and one stream of draws, the device body
+   applied eagerly against one ``train_iteration`` and a window of 8
+   (``train_iterations``), against ``run(DeviceResidentIterator,
+   loss_fetch_every=8)`` (a window of 1, the manifold export's, then one
+   ``next_window`` slice of 8), and ``run()`` with ``prefetch=2`` over an
+   ``ArrayDataSetIterator`` against the resident run: every leaf and loss
+   equal, every key captured once, a second window capturing nothing;
+   then a ragged epoch tail (tabular, 640 rows at 256, two epochs) captured
+   once and replayed;
+q. uncaptured (the device body launched op by op) against captured, back
+   to back in one call, at the batches of (d), (h) and (l), fp32 and
+   mixed bf16: the first two iterations' seconds (warmup and capture
+   included), host and CUDA-event ms, rows/s, busy share, kernels and
+   launch calls (kernel launches, graph launches, copies) per iteration,
+   peak memory and each entry's private pool, and a window of 16 over one
+   resident batch.
 
 Then int8 (``quant/``), the port's one hand-written kernel first: before
 any phase, ``gan_deeplearning4j_tpu_torch/csrc/quant_dense.cu`` is built
@@ -541,12 +567,15 @@ def _phase_timing(x, y, card: str) -> dict:
     measured["images_per_s"] = measured.pop("rows_per_s")
     # a second window with host activity: the iteration's stages
     # (record_function ranges) by host time and by the device time of
-    # their kernels
+    # their kernels. A replay runs no host code, so this window runs the
+    # device body uncaptured
     cpu_cuda = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    exp.graphs.captured = False
     with torch.profiler.profile(activities=cpu_cuda) as prof:
         for xb, yb in batches[25:30]:
             exp.train_iteration(xb, yb)
         torch.cuda.synchronize()
+    exp.graphs.captured = True
     stages: dict = {}
     for ev in prof.events():  # the host-side ranges; their kernels' time
         if ev.device_type == torch.autograd.DeviceType.CPU and ev.name.startswith(("iteration.", "step.")):
@@ -613,7 +642,9 @@ def _wgan_first_step_grads(exp, xb) -> tuple:
     from gan_deeplearning4j_tpu_torch.runtime import compute_dtype_scope
 
     batches = exp._critic_batches(exp._to_device(xb))
-    zs, epsilons, gen_z = exp._round_draws(int(exp.gen_state.step), batches.shape[1])
+    rows = batches.shape[1]
+    zs, epsilons, gen_z = exp._unpack_draws(
+        exp._to_device(exp._step_draws(int(exp.gen_state.step), rows)), rows)
     with compute_dtype_scope(exp._compute_dtype):
         c_loss, c_grads = exp.trainer.critic_grads(exp.critic_state.params, exp.gen_state.params,
                                                    batches[0], zs[0], epsilons[0])
@@ -985,6 +1016,311 @@ def _phase_bf16_timing(x, y, card: str) -> list:
         torch.cuda.empty_cache()
     return rows
 
+
+
+# -- captured windows: the port of the JAX package's device loop ---------------
+
+#: (p)'s cases: (family, batch, config overrides)
+WINDOW_CASES = (
+    ("mnist", 200, {}), ("mnist", 200, {"compute_dtype": "bf16"}),
+    ("mnist", 200, {"param_dtype": "bf16"}), ("tabular", 256, {}), ("cifar10", 64, {}),
+    ("wgan_gp", 320, {}), ("wgan_gp", 320, {"compute_dtype": "bf16"}),
+)
+#: (p)'s window, and (q)'s window over one resident batch
+WINDOW_K, RESIDENT_K = 8, 16
+
+
+def _experiment_for(name: str, batch: int, **overrides):
+    if name == "mnist":
+        return _mnist_experiment(batch, **overrides)
+    return _family_experiment(name, batch, **overrides)
+
+
+def _stacked_batches(exp, name: str, x, y, count: int, batch: int):
+    """``count`` batches as ``(count, batch, F)`` features and labels."""
+    pairs = _mnist_batches(x, y, batch, count) if name == "mnist" else _family_batches(exp, count, batch)
+    return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
+
+
+def _eager_body(exp, feats, labels) -> np.ndarray:
+    """The device body applied straight to the trees, uncaptured and with
+    no static buffer (the eager iteration): ``(K, 3)`` losses."""
+    rows = []
+    for k in range(feats.shape[0]):
+        inputs = {"features": torch.from_numpy(feats[k]).to(exp.device),
+                  "draws": exp._window_draws(1, feats.shape[1])[0]}
+        if exp.cv is not None:
+            inputs["labels"] = torch.from_numpy(labels[k]).to(exp.device)
+        trees, row = exp._body(exp._trees(), inputs)
+        exp._set_trees(trees)
+        rows.append(row)
+    return torch.stack(rows).cpu().numpy()
+
+
+def _differing_leaves(a, b) -> list:
+    """``flatten_states`` keys whose dtype or bits differ between two
+    experiments."""
+    from gan_deeplearning4j_tpu_torch.harness.experiment import flatten_states
+
+    fa, fb = flatten_states(a.digest_states()), flatten_states(b.digest_states())
+    return [k for k in fa if not (fa[k].dtype == fb[k].dtype and torch.equal(fa[k], fb[k])
+                                  if isinstance(fa[k], torch.Tensor) else fa[k] == fb[k])]
+
+
+def _history(result) -> np.ndarray:
+    return np.array([[h[k] for k in ("d_loss", "g_loss", "cv_loss")] for h in result["history"]],
+                    dtype=np.float32)
+
+
+def _phase_windows(x, y, directory: str, card: str) -> list:
+    """(p) Captured windows against the eager body, bit for bit. For each
+    of ``WINDOW_CASES``, from one init and one stream of draws, 9
+    iterations four ways: the device body applied eagerly; one
+    ``train_iteration`` then ``train_iterations`` over a window of 8 (graph
+    replays); ``run(DeviceResidentIterator, loss_fetch_every=8)``, whose
+    first iteration ends at the manifold export and whose next 8 are one
+    ``next_window`` slice; and ``run()`` with ``prefetch=2`` over an
+    ``ArrayDataSetIterator``. Every leaf (dtype and bits) and every loss
+    equal; every key captured once, and a second window captures nothing.
+    Then the ragged tail: tabular b256 over 640 rows for two epochs, whose
+    128-row batch is captured once and replayed, against the eager body on
+    the same batches."""
+    from gan_deeplearning4j_tpu_torch.data import ArrayDataSetIterator, DeviceResidentIterator
+
+    rows, failed = [], []
+    for i, (name, batch, dtypes) in enumerate(WINDOW_CASES):
+        n_it = WINDOW_K + 1
+        eager = _experiment_for(name, batch, **dtypes)
+        feats, labels = _stacked_batches(eager, name, x, y, n_it, batch)
+        want = _eager_body(eager, feats, labels)
+        window = _experiment_for(name, batch, **dtypes)
+        first = window.train_iteration(feats[0], labels[0])
+        rest = window.train_iterations(feats[1:], labels[1:])
+        got_window = np.concatenate([
+            torch.stack([first[k] for k in ("d_loss", "g_loss", "cv_loss")])[None].cpu().numpy(),
+            torch.stack([rest[k] for k in ("d_loss", "g_loss", "cv_loss")], dim=1).cpu().numpy()])
+        flat_x, flat_y = feats.reshape(n_it * batch, -1), labels.reshape(n_it * batch, -1)
+        runs = {}
+        for mode in ("resident", "prefetch"):
+            exp = _experiment_for(name, batch, num_iterations=n_it, loss_fetch_every=WINDOW_K,
+                                  print_every=1000, prefetch=2 if mode == "prefetch" else 0,
+                                  output_dir=os.path.join(directory, f"windows_{i}_{mode}"), **dtypes)
+            it = (DeviceResidentIterator(flat_x, flat_y, batch_size=batch, device=exp.device)
+                  if mode == "resident" else ArrayDataSetIterator(flat_x, flat_y, batch_size=batch))
+            runs[mode] = (exp, _history(exp.run(it)))
+        counts = dict(window.graphs.capture_counts)
+        window.train_iterations(feats[1:], labels[1:])  # a second window: no capture
+        checks = {
+            "train_iterations_losses_equal": bool(np.array_equal(got_window, want, equal_nan=True)),
+            "run_resident_losses_equal": bool(np.array_equal(runs["resident"][1], want, equal_nan=True)),
+            "run_prefetch_history_equal": bool(np.array_equal(runs["prefetch"][1], runs["resident"][1],
+                                                              equal_nan=True)),
+            "run_resident_leaves_differing": _differing_leaves(runs["resident"][0], eager)[:5],
+            "run_prefetch_leaves_differing": _differing_leaves(runs["prefetch"][0], eager)[:5],
+            "captures": {m: dict(e.graphs.capture_counts) for m, e in
+                         (("train_iterations", window), ("run_resident", runs["resident"][0]),
+                          ("run_prefetch", runs["prefetch"][0]))},
+            "second_window_captured": window.graphs.capture_counts != counts,
+        }
+        # the second window: 8 more eager iterations, then every leaf
+        eager_more = _eager_body(eager, feats[1:], labels[1:])
+        checks["train_iterations_leaves_differing"] = _differing_leaves(window, eager)[:5]
+        row = {"phase": "windows", "family": name, "batch": batch, **dtypes, "iterations": n_it,
+               "window": WINDOW_K, **checks,
+               "entries": window.graphs.entry_stats(), "card": card}
+        print(json.dumps(row))
+        rows.append(row)
+        ok = (checks["train_iterations_losses_equal"] and checks["run_resident_losses_equal"]
+              and checks["run_prefetch_history_equal"] and not checks["run_resident_leaves_differing"]
+              and not checks["run_prefetch_leaves_differing"]
+              and not checks["train_iterations_leaves_differing"] and not checks["second_window_captured"]
+              and all(c and set(c.values()) == {1} for c in checks["captures"].values())
+              and np.isfinite(eager_more[:, :2]).all())
+        if not ok:
+            failed.append(f"{name} {dtypes}")
+        del eager, window, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the ragged last batch of an epoch: 640 rows at 256, two epochs
+    batch, n_rows = 256, 640
+    ragged = _family_experiment("tabular", batch, num_iterations=6, loss_fetch_every=WINDOW_K,
+                                print_every=1000, output_dir=os.path.join(directory, "windows_ragged"))
+    xs = ragged.family.synthetic_data(n_rows, ragged.model_cfg, SEED)
+    ys = np.eye(10, dtype=np.float32)[np.arange(n_rows) % 10]
+    result = ragged.run(DeviceResidentIterator(xs, ys, batch_size=batch, device=ragged.device))
+    eager = _family_experiment("tabular", batch)
+    want = np.concatenate([_eager_body(eager, xs[lo:lo + batch][None], ys[lo:lo + batch][None])
+                           for _ in range(2) for lo in (0, 256, 512)])
+    stats = ragged.graphs.entry_stats()
+    tail = [v for k, v in stats.items() if k.startswith("features[128, ")]
+    row = {"phase": "windows_ragged_tail", "family": "tabular", "batch": batch, "rows": n_rows,
+           "iterations": result["iterations"], "losses_equal": bool(np.array_equal(
+               _history(result), want, equal_nan=True)),
+           "leaves_differing": _differing_leaves(ragged, eager)[:5],
+           "captures": dict(ragged.graphs.capture_counts), "entries": stats, "card": card}
+    print(json.dumps(row))
+    rows.append(row)
+    if not (row["losses_equal"] and not row["leaves_differing"] and len(tail) == 1
+            and tail[0]["runs"] == 2 and set(row["captures"].values()) == {1}):
+        failed.append("ragged tail")
+    if failed:
+        raise AssertionError(f"captured windows differ from the eager body: {failed}")
+    return rows
+
+
+#: (q)'s cases: the batches of (d), (h) and (l)
+CAPTURE_TIMING_CASES = (("mnist", 200), ("tabular", 256), ("tabular", 4096), ("cifar10", 64),
+                        ("celeba64", 64), ("wgan_gp", 320))
+#: host-side calls that put work on the card, as the profiler names them
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                 "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def _launch_calls(exp, batches) -> dict:
+    """A profiler window over 5 iterations with host activity: the calls
+    that launch work (kernels, graphs, copies) per iteration, by name."""
+    cpu_cuda = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=cpu_cuda) as prof:
+        for xb, yb in batches:
+            exp.train_iteration(xb, yb)
+        torch.cuda.synchronize()
+    calls: dict = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CPU and ev.name in _LAUNCH_CALLS:
+            calls[ev.name] = calls.get(ev.name, 0) + 1 / len(batches)
+    return calls
+
+
+def _resident_window_ms(exp, xb, yb) -> dict:
+    """A window of ``RESIDENT_K`` iterations over one batch already on the
+    card (as bench.py times the JAX scan): host ms with a synchronize and
+    CUDA-event ms, per iteration, the median of 3 windows after one; then
+    one more window under the profiler (card only): its busy share and
+    kernel ms per iteration."""
+    from gan_deeplearning4j_tpu_torch.serving.profile import _union_us
+
+    feats = torch.from_numpy(np.stack([xb] * RESIDENT_K)).to(exp.device)
+    labels = torch.from_numpy(np.stack([yb] * RESIDENT_K)).to(exp.device)
+    exp.train_iterations(feats, labels)
+    torch.cuda.synchronize()
+    host, event = [], []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        exp.train_iterations(feats, labels)
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3 / RESIDENT_K)
+        event.append(start.elapsed_time(end) / RESIDENT_K)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        exp.train_iterations(feats, labels)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = [(ev.time_range.start, ev.time_range.end) for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA]
+    return {"host_ms_per_iteration": statistics.median(host),
+            "event_ms_per_iteration": statistics.median(event),
+            "profiled_busy_share": _union_us(spans) / wall_us,
+            "profiled_kernel_ms_per_iteration": _union_us(spans) / RESIDENT_K / 1e3}
+
+
+def _host_split(exp, batches) -> dict:
+    """Host ms per ``train_iteration`` call (one per batch, each followed by
+    a synchronize outside the clock), split by wrapping its pieces: the
+    window's draws (drawn on the host, pinned, copied), the runner
+    (``graphs.run``: bookkeeping, input copies, the replay, the loss copy),
+    and inside it the graph launch itself; the rest is the batch's copy to
+    the card."""
+    spent = {"call": 0.0, "draws": 0.0, "runner": 0.0, "graph_launch": 0.0}
+
+    def timed(key, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return wrapper
+
+    real_replay = torch.cuda.CUDAGraph.replay
+    exp._window_draws = timed("draws", exp._window_draws)
+    exp.graphs.run = timed("runner", exp.graphs.run)
+    torch.cuda.CUDAGraph.replay = timed("graph_launch", real_replay)
+    try:
+        for xb, yb in batches:
+            t0 = time.perf_counter()
+            exp.train_iteration(xb, yb)
+            spent["call"] += time.perf_counter() - t0
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.CUDAGraph.replay = real_replay
+        del exp._window_draws, exp.graphs.run
+    out = {k: v / len(batches) * 1e3 for k, v in spent.items()}
+    out["batch_to_device_and_rest"] = out["call"] - out["draws"] - out["runner"]
+    return out
+
+
+def _phase_capture_timing(x, y, card: str) -> list:
+    """(q) The iteration uncaptured (the device body launched op by op on
+    the card, ``graphs.captured = False``) against captured (one graph
+    replay and its copies), in the same call, back to back, at the batches
+    of (d), (h) and (l), fp32 and mixed bf16: the first call's seconds
+    (for captured: warmup and capture of the init and steady entries),
+    host and CUDA-event ms, rows/s, busy share, kernels per iteration,
+    launch calls per iteration, peak memory, each entry's private pool,
+    a window of 16 over one resident batch (timed, then profiled), and for
+    captured calls the host time split into draws, runner and graph
+    launch."""
+    rows = []
+    for dtype in ("fp32", "bf16"):
+        dtypes = {"compute_dtype": "bf16"} if dtype == "bf16" else {}
+        for name, batch in CAPTURE_TIMING_CASES:
+            pair = {}
+            for mode in ("uncaptured", "captured"):
+                exp = _experiment_for(name, batch, **dtypes)
+                exp.graphs.captured = mode == "captured"
+                if name == "mnist":
+                    batches = _mnist_batches(x, y, batch, 35)
+                else:
+                    distinct = _family_batches(exp, 4, batch)
+                    batches = [distinct[i % 4] for i in range(35)]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                exp.train_iteration(*batches[0])
+                exp.train_iteration(*batches[1])
+                torch.cuda.synchronize()
+                first_two_s = time.perf_counter() - t0
+                peak = ("bf16", BF16_FLOP_PER_S) if dtype == "bf16" else ("fp32", FP32_FLOP_PER_S)
+                measured = _measure_iterations(exp, batches[2:32], batch, top_n=3, peak=peak)
+                runs0 = exp.graphs.runs
+                calls = _launch_calls(exp, batches[30:35])
+                graph_launches = (exp.graphs.runs - runs0) / 5 if exp.graphs.captured else 0.0
+                if exp.graphs.captured:
+                    measured["host_ms_split"] = _host_split(exp, batches[30:35])
+                pair[mode] = {
+                    "first_two_iterations_s": first_two_s, **measured,
+                    "launch_calls_per_iteration": calls,
+                    "launch_calls_total_per_iteration": sum(calls.values()),
+                    "graph_launches_per_iteration": graph_launches,
+                    "resident_window": _resident_window_ms(exp, *batches[0]),
+                    "captures": dict(exp.graphs.capture_counts),
+                    "entries": exp.graphs.entry_stats(),
+                }
+                del exp
+                gc.collect()
+                torch.cuda.empty_cache()
+            row = {"phase": "capture_timing", "family": name, "batch": batch, "dtype": dtype,
+                   "host_ms_uncaptured_to_captured": [pair["uncaptured"]["iteration_ms_host_median"],
+                                                      pair["captured"]["iteration_ms_host_median"]],
+                   **pair, "card": card}
+            print(json.dumps(row))
+            rows.append(row)
+            if any(v != 1 for v in pair["captured"]["captures"].values()) or not pair["captured"]["captures"]:
+                raise AssertionError(f"(q) {name} {dtype}: captures {pair['captured']['captures']}")
+    return rows
 
 
 # -- int8: the quant_dense kernel, int8 bundles served, cost and canary -------
@@ -1532,8 +1868,8 @@ def main(argv=None) -> int:
 
         int8_dir = os.path.join(directory, "int8_variant")
         build_int8_variant(directory, int8_dir)
-        # each family, bf16 and int8 phase runs even when an earlier one
-        # failed; a failure still fails the run
+        # each family, bf16, window and int8 phase runs even when an
+        # earlier one failed; a failure still fails the run
         families, failed = {}, []
         for key, run in (("card_vs_cpu", lambda: _phase_family_card_vs_cpu(card)),
                          ("resume", lambda: _phase_family_resume(directory, card)),
@@ -1544,6 +1880,8 @@ def main(argv=None) -> int:
                          ("bf16_publish_serve",
                           lambda: _phase_bf16_publish_serve(x, y, directory, directory, card)),
                          ("bf16_timing", lambda: _phase_bf16_timing(x, y, card)),
+                         ("windows", lambda: _phase_windows(x, y, directory, card)),
+                         ("capture_timing", lambda: _phase_capture_timing(x, y, card)),
                          ("quant_kernel", lambda: _phase_quant_kernel(directory, int8_dir, card)),
                          ("int8_serve", lambda: _phase_int8_serve(directory, int8_dir, card)),
                          ("cost_and_canary",
@@ -1554,7 +1892,7 @@ def main(argv=None) -> int:
                 traceback.print_exc()
                 failed.append(key)
     if failed:
-        print(f"chip_smoke: family / bf16 / int8 phases failed: {failed}", file=sys.stderr)
+        print(f"chip_smoke: family / bf16 / window / int8 phases failed: {failed}", file=sys.stderr)
         return 1
     top = engine.buckets[-1]
     for row in ladder:

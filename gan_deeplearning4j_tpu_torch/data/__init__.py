@@ -4,15 +4,18 @@
 ``DataSet{features, one-hot labels}`` pipeline, plus the MNIST preparation
 (real MNIST on disk, else scikit-learn's digits, else a synthetic set).
 
-Batches are host numpy arrays; the experiment moves them to the device.
-The JAX package's ``DeviceResidentIterator`` and ``DevicePrefetchIterator``
-wait for ROADMAP.md queue 1, 'Device-resident and prefetch iterators'.
+The record and array iterators yield host numpy batches, which the
+experiment moves to the device. ``DeviceResidentIterator`` (the whole set
+on the device, windows as one slice) and ``DevicePrefetchIterator`` (any
+iterator, ``depth`` batches ahead on a side stream) yield device tensors.
 """
 
 from gan_deeplearning4j_tpu_torch.data.dataset import DataSet, one_hot_np
 from gan_deeplearning4j_tpu_torch.data.iterator import (
     ArrayDataSetIterator,
     DataSetIterator,
+    DevicePrefetchIterator,
+    DeviceResidentIterator,
     RecordReaderDataSetIterator,
 )
 from gan_deeplearning4j_tpu_torch.data.mnist import (
@@ -33,6 +36,8 @@ __all__ = [
     "one_hot_np",
     "ArrayDataSetIterator",
     "DataSetIterator",
+    "DevicePrefetchIterator",
+    "DeviceResidentIterator",
     "RecordReaderDataSetIterator",
     "load_mnist",
     "load_mnist_csv",

@@ -6,9 +6,10 @@ defaults, overridable from JSON and argparse.
 ``validate()`` makes the JAX package's checks (the WGAN-GP family's
 included) and also refuses, with ``NotImplementedError`` naming the
 ROADMAP.md item that brings it, what the port does not run yet:
-``distributed != "none"`` and ``update_sharding`` ('Parallel training'),
-``conditioning="class"`` ('Class conditioning') and ``prefetch > 0``
-('Device-resident and prefetch iterators').
+``distributed != "none"`` and ``update_sharding`` ('Parallel training')
+and ``conditioning="class"`` ('Class conditioning'). ``prefetch > 0``
+makes ``run()`` keep that many batches ahead on the device
+(``DevicePrefetchIterator``).
 
 Precision, as in the JAX package: ``compute_dtype="bf16"`` runs the dense
 and convolution products in bf16 with fp32 accumulation while params stay
@@ -94,7 +95,7 @@ class ExperimentConfig:
     update_sharding: bool = False
     averaging_frequency: int = 10
     batch_size_per_worker: int = 200
-    prefetch: int = 0  # workerPrefetchNumBatches (:328)
+    prefetch: int = 0  # workerPrefetchNumBatches (:328); >0 enables device prefetch
     use_accelerator: bool = True  # the useGpu flag (:92): True = cuda:0, False = CPU
     # None / "f32": full precision; "bf16": dense and convolution products in
     # bf16 with fp32 accumulation, params fp32 (mixed precision)
@@ -179,11 +180,6 @@ class ExperimentConfig:
             raise NotImplementedError(
                 "conditioning='class' is not ported yet: ROADMAP.md queue 1, "
                 "'Class conditioning'"
-            )
-        if self.prefetch > 0:
-            raise NotImplementedError(
-                "prefetch > 0 (DevicePrefetchIterator) is not ported yet: "
-                "ROADMAP.md queue 1, 'Device-resident and prefetch iterators'"
             )
         return self
 

@@ -19,13 +19,22 @@ fused program (``_build_fused_iteration``):
 The WGAN-GP family has a loop of its own on the same surface
 (``harness/wgan_experiment.py``).
 
-The iteration runs eagerly: every op goes to PyTorch's kernels (cuDNN,
-cuBLAS, ATen) on the experiment's device. The losses stay on the device
-until ``run()`` reads a window of them back in one copy. Each stage is a
-``torch.profiler.record_function`` range (``iteration.sample_fake``,
-``iteration.dis_real``, ``iteration.dis_fake``, ``iteration.gan``,
-``iteration.cv``), so a profiler trace splits the iteration's host and
-device time by stage.
+The iteration is split in two, as the JAX package's fused program is:
+the host draws every input it keys by step (z, resampled label noise, the
+dis-LR scale) for a whole window into one pinned tensor and copies it to
+the device once; the *device body* (``_body``) is the iteration itself, a
+function of static buffers only. On the card a window of K iterations is K
+replays of that body captured as one CUDA graph (``harness/graphs.py``,
+the port of ``_build_multi_iteration``), and ``train_iteration`` is a
+window of one; on the CPU the same body runs uncaptured on the same
+buffers. Every op goes to PyTorch's kernels (cuDNN, cuBLAS, ATen). The
+states are updated in place in their static buffers, as the JAX package
+donates them: a caller that keeps a state tree across an iteration clones
+it. The losses stay on the device until ``run()`` reads a window of them
+back in one copy. Each stage is a ``torch.profiler.record_function`` range
+(``iteration.sample_fake``, ``iteration.dis_real``, ``iteration.dis_fake``,
+``iteration.gan``, ``iteration.cv``); they mark host time while the body
+runs uncaptured or is captured.
 
 Randomness. Label softening ε comes from ``np.random.default_rng(seed)``
 and is drawn once (the reference's quirk), so it is bit-equal to the JAX
@@ -69,8 +78,9 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from gan_deeplearning4j_tpu_torch.data import write_csv
+from gan_deeplearning4j_tpu_torch.data import DevicePrefetchIterator, write_csv
 from gan_deeplearning4j_tpu_torch.harness.config import ExperimentConfig
+from gan_deeplearning4j_tpu_torch.harness.graphs import CapturedIterations
 from gan_deeplearning4j_tpu_torch.models import registry
 from gan_deeplearning4j_tpu_torch.nn import ComputationGraph
 from gan_deeplearning4j_tpu_torch.nn.layers import (
@@ -205,6 +215,12 @@ def _rebind(src: TrainState, dst: TrainState, mapping) -> TrainState:
     )
 
 
+def _stack(rows: Sequence) -> torch.Tensor:
+    """Batches of one shape, host arrays or device tensors, stacked where
+    they lie: device batches never come back to the host."""
+    return torch.stack([torch.as_tensor(r) for r in rows])
+
+
 def experiment_device(cfg: ExperimentConfig) -> torch.device:
     """The device ``config.use_accelerator`` asks for; on the card, fp32
     runs with TF32 off and cuDNN restricted to deterministic algorithms."""
@@ -290,6 +306,7 @@ class GanExperiment:
         self.metrics = MetricsLogger(cfg.metrics_jsonl)
         self.batch_counter = 0
         self._epilogue_active = False
+        self.graphs = CapturedIterations(self._body, dev)
 
     # -- randomness -------------------------------------------------------
     def _soft_noise(self, n: int) -> np.ndarray:
@@ -298,19 +315,16 @@ class GanExperiment:
     def _draw_z(self, dis_step: int, batch: int) -> torch.Tensor:
         """The default z source: ``(2, batch, z_size)`` uniform in [−1, 1)
         (z for the fakes, then z for the generator step), drawn on the CPU
-        from the step's generator into pinned memory when the run is on the
-        card."""
+        from the step's generator."""
         g = step_generator(self.config.seed + 2, dis_step)
-        z = torch.rand((2, batch, self.model_cfg.z_size), generator=g,
-                       pin_memory=self.device.type == "cuda")
+        z = torch.rand((2, batch, self.model_cfg.z_size), generator=g)
         return z.mul_(2.0).sub_(1.0)
 
     def _resampled_soft_labels(self, dis_step: int, batch: int):
         """Fresh (1+ε, 0+ε) for ``resample_label_noise``, from the step's
-        own generator on a separate key."""
+        own generator on a separate key (host tensors)."""
         g = step_generator(self.config.seed + 3, dis_step)
         eps = self.config.label_softening * torch.randn((2, batch, 1), generator=g)
-        eps = eps.to(self.device)
         return 1.0 + eps[0], 0.0 + eps[1]
 
     def _eps_slices(self, b: int):
@@ -323,14 +337,11 @@ class GanExperiment:
         return self._eps_real[:b], self._eps_fake[:b]
 
     def _soft_labels(self, b: int):
-        """Fixed softened labels (1+ε, 0+ε) for batch size ``b``, resident on
-        the device, cached per batch size."""
+        """Fixed softened labels (1+ε, 0+ε) for batch size ``b`` (host
+        tensors), cached per batch size."""
         if b not in self._soft_cache:
             eps_r, eps_f = self._eps_slices(b)
-            self._soft_cache[b] = (
-                torch.from_numpy(1.0 + eps_r).to(self.device),
-                torch.from_numpy(0.0 + eps_f).to(self.device),
-            )
+            self._soft_cache[b] = (torch.from_numpy(1.0 + eps_r), torch.from_numpy(0.0 + eps_f))
         return self._soft_cache[b]
 
     def _dis_lr_scale(self, dis_step: int) -> Optional[float]:
@@ -343,9 +354,12 @@ class GanExperiment:
         return float(np.float32(cfg.dis_lr_decay_rate) ** np.float32(iteration // cfg.dis_lr_decay_every))
 
     def _to_device(self, x) -> torch.Tensor:
-        """Host rows (batches, z, ε) as float32 on the device: they are
-        never cast to the param dtype."""
-        return torch.as_tensor(x, dtype=torch.float32).to(self.device, non_blocking=True)
+        """Rows (batches, draws) as float32 on the device, through pinned
+        memory from the host: they are never cast to the param dtype."""
+        t = torch.as_tensor(x, dtype=torch.float32)
+        if self.device.type == "cuda" and t.device.type == "cpu":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
 
     def _cast_state(self, state):
         """Under bf16 storage, a ``TrainState`` or params tree with every
@@ -359,64 +373,111 @@ class GanExperiment:
         return cast_float_leaves(state, self._param_dtype)
 
     # -- the iteration ----------------------------------------------------
-    def _fused(self, real_f: torch.Tensor, real_l: torch.Tensor) -> torch.Tensor:
-        """One alternating iteration on device tensors; returns the
-        ``(d_loss, g_loss, cv_loss)`` device vector."""
-        with compute_dtype_scope(self._compute_dtype):
-            return self._fused_in_scope(real_f, real_l)
-
-    def _fused_in_scope(self, real_f: torch.Tensor, real_l: torch.Tensor) -> torch.Tensor:
-        cfg = self.config
-        b = real_f.shape[0]
-        step = self.dis_state.step
-        z = self._to_device(self.z_source(step, b))
-        if cfg.resample_label_noise:
-            soft1, soft0 = self._resampled_soft_labels(step, b)
+    def _step_draws(self, dis_step: int, b: int) -> torch.Tensor:
+        """Every input the iteration at ``dis_step`` keys by step, as one
+        float32 host row: z ``(2, b, z_size)``, soft1 and soft0 ``(b, 1)``
+        (fixed or resampled), then the dis-LR scale when that schedule is
+        on (``_unpack_draws`` reads it back)."""
+        z = torch.as_tensor(self.z_source(dis_step, b), dtype=torch.float32)
+        if self.config.resample_label_noise:
+            soft1, soft0 = self._resampled_soft_labels(dis_step, b)
         else:
             soft1, soft0 = self._soft_labels(b)
-        dis_scale = self._dis_lr_scale(step)
-        # (a) fake batch from the frozen sampler
-        with torch.no_grad(), record_function("iteration.sample_fake"):
-            fake = self.gen.output(self.gen_params, z[0], train=False).reshape(real_f.shape)
-        # (b) dis fit: real→soft1 then fake→soft0, two optimizer steps
-        with record_function("iteration.dis_real"):
-            self.dis_state, d1 = self.dis_trainer.train_step(self.dis_state, real_f, soft1, dis_scale)
-        with record_function("iteration.dis_fake"):
-            self.dis_state, d2 = self.dis_trainer.train_step(self.dis_state, fake, soft0, dis_scale)
-        # (c) dis → gan frozen tail
-        self.gan_state = _rebind(self.dis_state, self.gan_state, self.dis_to_gan)
-        # (d) generator step through the frozen D on [z, ones]
-        ones = torch.ones((b, 1), dtype=torch.float32, device=self.device)
-        with record_function("iteration.gan"):
-            self.gan_state, g = self.gan_trainer.train_step(self.gan_state, z[1], ones)
-        # (e) gan → gen refresh; dis → classifier features
-        self.gen_params = ComputationGraph.copy_params(
-            self.gan_state.params, self.gen_params, self.gan_to_gen
-        )
-        if self.cv is None:
-            c = torch.full((), float("nan"), device=self.device)
-        else:
-            self.cv_state = _rebind(self.dis_state, self.cv_state, self.family.dis_to_cv)
-            # (f) classifier step on the real labelled batch
-            with record_function("iteration.cv"):
-                self.cv_state, c = self.cv_trainer.train_step(self.cv_state, real_f, real_l)
-        return torch.stack([(d1 + d2) / 2.0, g, c])
+        parts = [z.reshape(-1), soft1.reshape(-1), soft0.reshape(-1)]
+        scale = self._dis_lr_scale(dis_step)
+        if scale is not None:
+            parts.append(torch.tensor([scale], dtype=torch.float32))
+        return torch.cat(parts)
+
+    def _window_draws(self, k: int, b: int) -> torch.Tensor:
+        """``(k, n)`` draws of the next ``k`` iterations (two dis steps
+        each), moved to the device in one copy."""
+        step = self.dis_state.step
+        return self._to_device(torch.stack([self._step_draws(step + 2 * i, b) for i in range(k)]))
+
+    def _unpack_draws(self, draws: torch.Tensor, b: int):
+        """``(z, soft1, soft0, dis_scale)``: views of one draws row; the
+        scale a 0-d tensor, or None when the schedule is off."""
+        n = 2 * b * self.model_cfg.z_size
+        z = draws[:n].view(2, b, self.model_cfg.z_size)
+        soft1, soft0 = draws[n:n + b].view(b, 1), draws[n + b:n + 2 * b].view(b, 1)
+        scale = draws[n + 2 * b] if self._dis_lr_scale(0) is not None else None
+        return z, soft1, soft0, scale
+
+    def _body(self, trees: Dict, inputs: Dict[str, torch.Tensor]):
+        """The device body: one alternating iteration on ``trees`` (``dis``,
+        ``gan``, ``cv``, ``gen``) and ``inputs`` (``features``, ``labels``
+        where the family has a classifier, ``draws``), functional. Returns
+        the new trees and the ``(d_loss, g_loss, cv_loss)`` row."""
+        real_f, real_l = inputs["features"], inputs.get("labels")
+        b = real_f.shape[0]
+        z, soft1, soft0, dis_scale = self._unpack_draws(inputs["draws"], b)
+        dis_state, gan_state, cv_state, gen_params = trees["dis"], trees["gan"], trees["cv"], trees["gen"]
+        with compute_dtype_scope(self._compute_dtype):
+            # (a) fake batch from the frozen sampler
+            with torch.no_grad(), record_function("iteration.sample_fake"):
+                fake = self.gen.output(gen_params, z[0], train=False).reshape(real_f.shape)
+            # (b) dis fit: real→soft1 then fake→soft0, two optimizer steps
+            with record_function("iteration.dis_real"):
+                dis_state, d1 = self.dis_trainer.train_step(dis_state, real_f, soft1, dis_scale)
+            with record_function("iteration.dis_fake"):
+                dis_state, d2 = self.dis_trainer.train_step(dis_state, fake, soft0, dis_scale)
+            # (c) dis → gan frozen tail
+            gan_state = _rebind(dis_state, gan_state, self.dis_to_gan)
+            # (d) generator step through the frozen D on [z, ones]
+            ones = torch.ones((b, 1), dtype=torch.float32, device=real_f.device)
+            with record_function("iteration.gan"):
+                gan_state, g = self.gan_trainer.train_step(gan_state, z[1], ones)
+            # (e) gan → gen refresh; dis → classifier features
+            gen_params = ComputationGraph.copy_params(gan_state.params, gen_params, self.gan_to_gen)
+            if self.cv is None:
+                c = torch.full((), float("nan"), device=real_f.device)
+            else:
+                cv_state = _rebind(dis_state, cv_state, self.family.dis_to_cv)
+                # (f) classifier step on the real labelled batch
+                with record_function("iteration.cv"):
+                    cv_state, c = self.cv_trainer.train_step(cv_state, real_f, real_l)
+        new = {"dis": dis_state, "gan": gan_state, "cv": cv_state, "gen": gen_params}
+        return new, torch.stack([(d1 + d2) / 2.0, g, c])
+
+    def _trees(self) -> Dict:
+        return {"dis": self.dis_state, "gan": self.gan_state, "cv": self.cv_state,
+                "gen": self.gen_params}
+
+    def _set_trees(self, trees: Dict) -> None:
+        self.dis_state, self.gan_state = trees["dis"], trees["gan"]
+        self.cv_state, self.gen_params = trees["cv"], trees["gen"]
+
+    def _window(self, features, labels) -> Dict:
+        """K iterations of the device body over a ``(K, B, …)`` window
+        (``graphs.run``: K replays on the card). Returns ``(K,)`` device
+        loss vectors, freshly allocated."""
+        feats = self._to_device(features)
+        window = {"features": feats}
+        if self.cv is not None:  # only the classifier step reads labels
+            if labels is None:
+                raise ValueError("the transfer classifier trains on labels; the batch has none")
+            window["labels"] = self._to_device(labels)
+        window["draws"] = self._window_draws(feats.shape[0], feats.shape[1])
+        trees, rows = self.graphs.run(self._trees(), window)
+        self._set_trees(trees)
+        return {"d_loss": rows[:, 0], "g_loss": rows[:, 1], "cv_loss": rows[:, 2]}
 
     def train_iteration(self, real_features, real_labels) -> Dict:
-        """One full alternating iteration. Inputs: features (B, num_features)
-        in [0,1] and one-hot labels (B, classes), host arrays or tensors.
-        Returns device scalars (no host read)."""
+        """One full alternating iteration (a window of one). Inputs:
+        features (B, num_features) in [0,1] and one-hot labels (B, classes),
+        host arrays or tensors. Returns device scalars (no host read)."""
         with self.timer.phase("train_fused"):
-            losses = self._fused(self._to_device(real_features), self._to_device(real_labels))
-        return {"d_loss": losses[0], "g_loss": losses[1], "cv_loss": losses[2]}
+            losses = self._window(self._to_device(real_features)[None],
+                                  None if real_labels is None else self._to_device(real_labels)[None])
+        return {k: v[0] for k, v in losses.items()}
 
     def train_iterations(self, features, labels) -> Dict:
         """K iterations over a ``(K, B, num_features)`` / ``(K, B, classes)``
-        window, moved to the device once; identical math to K calls of
-        ``train_iteration``. Returns ``(K,)`` device loss vectors."""
-        feats, labs = self._to_device(features), self._to_device(labels)
-        rows = torch.stack([self._fused(feats[k], labs[k]) for k in range(feats.shape[0])])
-        return {"d_loss": rows[:, 0], "g_loss": rows[:, 1], "cv_loss": rows[:, 2]}
+        window, moved to the device once; on the card K graph replays,
+        bit-equal to K calls of ``train_iteration``. Returns ``(K,)`` device
+        loss vectors."""
+        return self._window(features, labels)
 
     def flops_per_iteration(self, batch_size: Optional[int] = None) -> int:
         """FLOPs of the dense and (transposed) convolution layers in one
@@ -620,9 +681,16 @@ class GanExperiment:
         ``eval_callback(experiment, index)`` fires at every ``print_every``
         boundary, outside the throughput window. ``epilogue_callback(
         experiment, index)`` fires after every iteration (windows of 1); a
-        ``False`` return stops the loop cleanly."""
+        ``False`` return stops the loop cleanly.
+
+        ``prefetch > 0`` wraps an iterator that has no ``next_window`` in
+        ``DevicePrefetchIterator``; one that has it (``DeviceResidentIterator``)
+        serves each window as one device slice."""
         cfg = self.config
         self._epilogue_active = epilogue_callback is not None
+        if cfg.prefetch > 0 and not hasattr(train_iterator, "next_window"):
+            train_iterator = DevicePrefetchIterator(train_iterator, depth=cfg.prefetch,
+                                                    device=self.device)
         history: List[Dict[str, float]] = []
         pending: List[tuple] = []  # (start iteration, loss record, images list)
         pending_iters = 0
@@ -669,28 +737,38 @@ class GanExperiment:
                 # -- assemble the window (a power of two) ----------------
                 wmax = self._window_limit(have_predictions)
                 target = 1 << (wmax.bit_length() - 1)
-                batches = [pull()]
-                while len(batches) < target:
-                    nxt = pull()
-                    if nxt is None:
-                        break
-                    if np.shape(nxt.features) != np.shape(batches[0].features):
-                        carry.appendleft(nxt)  # ragged tail: a later window
-                        break
-                    batches.append(nxt)
-                keep = 1 << (len(batches).bit_length() - 1)
-                while len(batches) > keep:  # epoch remainder → next turn
-                    carry.appendleft(batches.pop())
-                n_window = len(batches)
-                images = [b.num_examples() for b in batches]
-                if n_window == 1:
-                    losses = self.train_iteration(batches[0].features, batches[0].labels)
-                else:
+                window = None
+                if target > 1 and not carry and hasattr(train_iterator, "next_window"):
+                    window = train_iterator.next_window(target)  # one device slice
+                if window is not None:
+                    n_window = int(window[0].shape[0])
+                    images = [int(window[0].shape[1])] * n_window
                     with self.timer.phase("train_window"):
-                        losses = self.train_iterations(
-                            np.stack([b.features for b in batches]),
-                            np.stack([b.labels for b in batches]),
-                        )
+                        losses = self.train_iterations(*window)
+                else:
+                    batches = [pull()]
+                    while len(batches) < target:
+                        nxt = pull()
+                        if nxt is None:
+                            break
+                        if tuple(nxt.features.shape) != tuple(batches[0].features.shape):
+                            carry.appendleft(nxt)  # ragged tail: a later window
+                            break
+                        batches.append(nxt)
+                    keep = 1 << (len(batches).bit_length() - 1)
+                    while len(batches) > keep:  # epoch remainder → next turn
+                        carry.appendleft(batches.pop())
+                    n_window = len(batches)
+                    images = [b.num_examples() for b in batches]
+                    if n_window == 1:
+                        losses = self.train_iteration(batches[0].features, batches[0].labels)
+                    else:
+                        with self.timer.phase("train_window"):
+                            losses = self.train_iterations(
+                                _stack([b.features for b in batches]),
+                                None if batches[0].labels is None
+                                else _stack([b.labels for b in batches]),
+                            )
                 pending.append((self.batch_counter, losses, images))
                 pending_iters += n_window
 

@@ -23,6 +23,14 @@ so a window of K rounds equals K single rounds bit for bit and a resumed
 run draws what the uninterrupted one would have. (The JAX package's
 window draws another stream than its single round.)
 
+A round is split as ``GanExperiment``'s iteration is: the host draws a
+window's triples into one pinned tensor, and the device body (``_body``:
+the critic round and the generator step, the gradient penalty's double
+backward included) reads only static buffers. On the card a window of K
+rounds is K replays of that body captured as a CUDA graph
+(``harness/graphs.py``); on the CPU it runs uncaptured on the same
+buffers. The states are updated in place.
+
 Precision is ``GanExperiment``'s: rounds, sampling and exports run inside
 the experiment's compute-dtype scope, and bf16 storage casts both states at
 init and on load. The gradient penalty's double backward then runs through
@@ -40,6 +48,7 @@ import numpy as np
 import torch
 
 from gan_deeplearning4j_tpu_torch.harness.config import ExperimentConfig
+from gan_deeplearning4j_tpu_torch.harness.graphs import CapturedIterations
 from gan_deeplearning4j_tpu_torch.harness.experiment import (
     _MESH_SHARD_RE,
     _OPERATIONS_WAITS,
@@ -92,6 +101,7 @@ class WganGpExperiment(GanExperiment):
         self.metrics = MetricsLogger(cfg.metrics_jsonl)
         self.batch_counter = 0
         self._epilogue_active = False
+        self.graphs = CapturedIterations(self._body, self.device)
 
     @property
     def gen_params(self):
@@ -102,19 +112,37 @@ class WganGpExperiment(GanExperiment):
     # -- randomness -------------------------------------------------------
     def _draw(self, gen_step: int, n_critic: int, rows: int):
         """The default draws of the round at ``gen_step``: ``(critic z,
-        critic ε, generator z)`` from the step's CPU generator, in pinned
-        memory when the run is on the card."""
+        critic ε, generator z)`` from the step's CPU generator."""
         g = step_generator(self.config.seed + 2, gen_step)
         z_size = self.model_cfg.z_size
-        pin = self.device.type == "cuda"
-        zs = torch.randn((n_critic, rows, z_size), generator=g, pin_memory=pin)
-        epsilons = torch.rand((n_critic, rows, 1), generator=g, pin_memory=pin)
-        gen_z = torch.randn((rows, z_size), generator=g, pin_memory=pin)
+        zs = torch.randn((n_critic, rows, z_size), generator=g)
+        epsilons = torch.rand((n_critic, rows, 1), generator=g)
+        gen_z = torch.randn((rows, z_size), generator=g)
         return zs, epsilons, gen_z
 
-    def _round_draws(self, gen_step: int, rows: int):
-        n = self.model_cfg.n_critic
-        return tuple(self._to_device(t) for t in self.draw_source(gen_step, n, rows))
+    def _critic_rows(self, b: int) -> int:
+        """Rows of each critic minibatch of a ``b``-row round (the tail
+        policy of ``_critic_batches``)."""
+        if b == 0:
+            raise ValueError("empty batch")
+        return max(b, self.model_cfg.n_critic) // self.model_cfg.n_critic
+
+    def _step_draws(self, gen_step: int, rows: int) -> torch.Tensor:
+        """The round's ``(zs, epsilons, gen_z)`` at ``rows`` rows a step, as
+        one float32 host row."""
+        draws = self.draw_source(gen_step, self.model_cfg.n_critic, rows)
+        return torch.cat([torch.as_tensor(t, dtype=torch.float32).reshape(-1) for t in draws])
+
+    def _window_draws(self, k: int, b: int) -> torch.Tensor:
+        rows = self._critic_rows(b)
+        step = self.gen_state.step
+        return self._to_device(torch.stack([self._step_draws(step + i, rows) for i in range(k)]))
+
+    def _unpack_draws(self, draws: torch.Tensor, rows: int):
+        n, z_size = self.model_cfg.n_critic, self.model_cfg.z_size
+        nz, ne = n * rows * z_size, n * rows
+        return (draws[:nz].view(n, rows, z_size), draws[nz:nz + ne].view(n, rows, 1),
+                draws[nz + ne:].view(rows, z_size))
 
     # -- the round --------------------------------------------------------
     def _critic_batches(self, real: torch.Tensor) -> torch.Tensor:
@@ -133,31 +161,38 @@ class WganGpExperiment(GanExperiment):
             real = real[:b]
         return real.reshape(n, b // n, -1)
 
+    def _body(self, trees: Dict, inputs: Dict[str, torch.Tensor]):
+        """The device body: one round on ``trees`` (``critic``, ``gen``) and
+        ``inputs`` (``features``, ``draws``), functional. Returns the new
+        trees and the ``(critic, generator, NaN)`` loss row."""
+        batches = self._critic_batches(inputs["features"])
+        draws = self._unpack_draws(inputs["draws"], batches.shape[1])
+        with compute_dtype_scope(self._compute_dtype):
+            critic, gen, c, g = self.trainer.train_round(trees["critic"], trees["gen"], batches, draws)
+        nan = torch.full((), float("nan"), device=c.device)
+        return {"critic": critic, "gen": gen}, torch.stack([c.float(), g.float(), nan])
+
+    def _trees(self) -> Dict:
+        return {"critic": self.critic_state, "gen": self.gen_state}
+
+    def _set_trees(self, trees: Dict) -> None:
+        self.critic_state, self.gen_state = trees["critic"], trees["gen"]
+
     def train_iteration(self, real_features, real_labels=None) -> Dict:
-        """One WGAN-GP round. ``real_labels`` is accepted (``run()`` passes
-        labels) and ignored: the critic is unsupervised. Returns device
-        scalars; ``cv_loss`` is NaN."""
-        with self.timer.phase("train_round"), compute_dtype_scope(self._compute_dtype):
-            batches = self._critic_batches(self._to_device(real_features))
-            draws = self._round_draws(int(self.gen_state.step), batches.shape[1])
-            self.critic_state, self.gen_state, c, g = self.trainer.train_round(
-                self.critic_state, self.gen_state, batches, draws
-            )
-        return {"d_loss": c, "g_loss": g, "cv_loss": torch.full((), float("nan"), device=self.device)}
+        """One WGAN-GP round (a window of one). ``real_labels`` is accepted
+        (``run()`` passes labels) and ignored: the critic is unsupervised.
+        Returns device scalars; ``cv_loss`` is NaN."""
+        with self.timer.phase("train_round"):
+            losses = self._window(self._to_device(real_features)[None], None)
+        return {k: v[0] for k, v in losses.items()}
 
     def train_iterations(self, features, labels=None) -> Dict:
         """K rounds over a ``(K, B, num_features)`` window, moved to the
         device once, each keyed by its generator step: identical to K calls
-        of ``train_iteration``. Returns ``(K,)`` device loss vectors."""
-        feats = self._to_device(features)
-        rounds = torch.stack([self._critic_batches(feats[k]) for k in range(feats.shape[0])])
-        step = int(self.gen_state.step)
-        draws = [self._round_draws(step + k, rounds.shape[2]) for k in range(rounds.shape[0])]
-        with self.timer.phase("train_rounds"), compute_dtype_scope(self._compute_dtype):
-            self.critic_state, self.gen_state, c, g = self.trainer.train_rounds(
-                self.critic_state, self.gen_state, rounds, draws
-            )
-        return {"d_loss": c, "g_loss": g, "cv_loss": torch.full_like(c, float("nan"))}
+        of ``train_iteration`` (K graph replays on the card). Returns
+        ``(K,)`` device loss vectors."""
+        with self.timer.phase("train_rounds"):
+            return self._window(features, None)
 
     def flops_per_iteration(self, batch_size: Optional[int] = None) -> int:
         """FLOPs of the dense and (transposed) convolution layers in one

@@ -10,11 +10,13 @@ Differences from the XENT families (Gulrajani et al. 2017):
   input gradient (``ops/losses.py::gradient_penalty``);
 - Adam(2e-4, β1 0, β2 0.9), no clipping, no L2.
 
-``WganGpTrainer`` runs on one device, eagerly. Its steps are built like
+``WganGpTrainer`` runs on one device. Its steps are built like
 ``GraphTrainer.train_step``: gradients of detached copies of the
 trainable leaves by ``autograd.grad``, then ``GraphOptimizer.step``, with
 new tensors returned. The random inputs (z, ε) are arguments: the caller
-owns the draws (``harness/wgan_experiment.py``).
+owns the draws (``harness/wgan_experiment.py``), and a round reads nothing
+else from the host, so it can be captured as a CUDA graph (the gradient
+penalty's double backward included).
 """
 
 from __future__ import annotations
@@ -262,18 +264,6 @@ class WganGpTrainer:
         with record_function("round.gen"):
             gen_state, g_loss = self.gen_step(gen_state, critic_state.params, gen_z)
         return critic_state, gen_state, c_loss, g_loss
-
-    def train_rounds(self, critic_state, gen_state, rounds, draws):
-        """K rounds: ``rounds`` ``(K, n_critic, B, F)`` and one ``draws``
-        triple per round. Returns the states and ``(K,)`` loss vectors."""
-        c_losses, g_losses = [], []
-        for k in range(rounds.shape[0]):
-            critic_state, gen_state, c, g = self.train_round(
-                critic_state, gen_state, rounds[k], draws[k]
-            )
-            c_losses.append(c)
-            g_losses.append(g)
-        return critic_state, gen_state, torch.stack(c_losses), torch.stack(g_losses)
 
     def sample(self, gen_state: TrainState, generator: torch.Generator, num: int):
         """``num`` images ``(num, H, W, C)`` from z ~ N(0, 1) drawn from

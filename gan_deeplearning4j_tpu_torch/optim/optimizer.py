@@ -8,7 +8,9 @@ One step, in the reference's order:
 2. each layer's updater on each trainable param; learning rate 0.0 gives
    a zero delta, but the leaf's updater state still advances;
 3. ``lr_scale`` (the dis-LR decay factor) multiplies the delta, as a
-   scalar of the delta's dtype;
+   scalar of the delta's dtype: a Python float, or a 0-d tensor on the
+   device (a captured iteration reads it from a buffer the host refills
+   before each replay), which gives the same bits;
 4. ``p - delta``.
 
 BatchNorm running stats (role "state") are never touched here: they
@@ -24,7 +26,7 @@ step returns new params and a new state tree.
 from __future__ import annotations
 
 from collections import defaultdict
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple, Union
 
 import torch
 
@@ -80,12 +82,12 @@ class GraphOptimizer:
         return grads
 
     def step(self, params: Dict, grads: Dict, opt_state: Dict,
-             lr_scale: Optional[float] = None) -> Tuple[Dict, Dict]:
+             lr_scale: Union[float, torch.Tensor, None] = None) -> Tuple[Dict, Dict]:
         """One update: ``(new_params, new_opt_state)``. ``grads`` holds a
         gradient for every trainable leaf (``{layer: {param: grad}}``).
-        ``lr_scale`` (a float or None) multiplies every delta: each updater's
-        delta is linear in its learning rate, so this rescales the
-        effective rate."""
+        ``lr_scale`` (a float, a 0-d float32 tensor, or None for no
+        multiply) multiplies every delta: each updater's delta is linear in
+        its learning rate, so this rescales the effective rate."""
         grads = self.clip_grads(grads)
         groups: Dict[tuple, List[Tuple[str, str]]] = defaultdict(list)
         for layer, pname in self.trainable_keys(params):
@@ -103,7 +105,10 @@ class GraphOptimizer:
                 # the scale is rounded to the delta's dtype first, as the
                 # reference casts it (an f32 scale must not promote a bf16
                 # delta, and a bf16 product must see the bf16 scale)
-                deltas = torch._foreach_mul(deltas, weak_scalar(lr_scale, deltas[0].dtype))
+                dt = deltas[0].dtype
+                scale = (lr_scale.to(dt) if isinstance(lr_scale, torch.Tensor)
+                         else weak_scalar(lr_scale, dt))
+                deltas = torch._foreach_mul(deltas, scale)
             for (layer, pname), p, s in zip(keys, torch._foreach_sub(ps, deltas), states):
                 new_params[layer][pname] = p
                 new_state[layer][pname] = s

@@ -28,7 +28,7 @@ backward) and ``step.update`` (clip and updater).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch.profiler import record_function
@@ -102,9 +102,10 @@ class GraphTrainer:
         return make_train_state(self.graph, self.optimizer, seed, params, device=device)
 
     def train_step(self, state: TrainState, features, labels,
-                   lr_scale: Optional[float] = None) -> Tuple[TrainState, torch.Tensor]:
+                   lr_scale: Union[float, torch.Tensor, None] = None) -> Tuple[TrainState, torch.Tensor]:
         """One optimizer step on one minibatch: ``(new_state, loss)``, the
-        loss a device scalar (no host read)."""
+        loss a device scalar (no host read). ``lr_scale`` is
+        ``GraphOptimizer.step``'s: a float, a 0-d tensor, or None."""
         params, keys, leaves = grad_leaves(self.optimizer, state.params)
         with torch.enable_grad(), record_function("step.grad"):
             loss, (_, new_params) = self.graph.loss(params, features, labels, train=True)

@@ -17,6 +17,7 @@ one thing the serving path needs from it: which device runs the model.
 
 from __future__ import annotations
 
+import os
 from typing import Union
 
 import torch
@@ -52,7 +53,13 @@ def pin_fp32_precision() -> None:
 def pin_deterministic_kernels() -> None:
     """cuDNN: deterministic algorithms only (its default may pick weight-
     gradient algorithms that accumulate with atomics) and no benchmark-mode
-    autotuning, whose choice can differ between runs. Process wide;
-    idempotent; called by the trainer when it runs on the card."""
+    autotuning, whose choice can differ between runs. cuBLAS: one fixed
+    workspace configuration (``CUBLAS_WORKSPACE_CONFIG``, unless the caller
+    set one), read when a handle's workspace is first made: a captured
+    iteration runs on a side stream with a workspace of its own, and its
+    GEMMs must pick what the eager ones pick. Process wide; idempotent;
+    called by the trainer when it runs on the card, so set before its
+    first GEMM."""
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")

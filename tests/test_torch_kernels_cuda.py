@@ -1,8 +1,9 @@
 """The port's hand-written CUDA kernels against their plain PyTorch
-versions, on the card. Every test here is marked ``cuda`` and skips where
-no NVIDIA GPU is present (a CUDA kernel has no CPU mode). This file imports
-neither jax nor the JAX package, so it runs on a machine with the card and
-without jax:
+versions, and the training iteration captured as a CUDA graph against the
+same device body run eagerly, on the card. Every test here is marked
+``cuda`` and skips where no NVIDIA GPU is present (a CUDA kernel has no CPU
+mode, nor has a CUDA graph). This file imports neither jax nor the JAX
+package, so it runs on a machine with the card and without jax:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
@@ -10,10 +11,14 @@ without jax:
 The kernels build at first use (``gan_deeplearning4j_tpu_torch/ops/_native.py``).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from gan_deeplearning4j_tpu_torch.harness import ExperimentConfig, make_experiment
+from gan_deeplearning4j_tpu_torch.harness.experiment import flatten_states
 from gan_deeplearning4j_tpu_torch.ops import linear
 
 
@@ -21,6 +26,8 @@ from gan_deeplearning4j_tpu_torch.ops import linear
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no CPU mode")
+    # before the first cuBLAS handle (the trainer sets the same)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     return torch.device("cuda")
 
 
@@ -129,3 +136,72 @@ def test_quant_dense_kernel_refuses_other_dtypes(card):
     w_scale = torch.ones(4, device=card)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         linear.quant_dense(x, w_q, w_scale, None, 0.1)
+
+
+# -- the training iteration as CUDA-graph replays ------------------------------------
+
+#: reduced widths (MNIST at the reference's), batch 16
+TRAIN_SHAPES = {
+    "mnist": dict(model_family="mnist"),
+    "tabular": dict(model_family="tabular", num_features=32, z_size=8),
+    "cifar10": dict(model_family="cifar10", height=8, width=8, channels=3, num_features=192),
+    "wgan_gp": dict(model_family="wgan_gp", height=8, width=8, channels=3, num_features=192,
+                    z_size=4, n_critic=2),
+}
+
+
+def _train_experiment(family, **dtypes):
+    return make_experiment(ExperimentConfig(**TRAIN_SHAPES[family], batch_size_train=16,
+                                            latent_grid=2, save_models=False, **dtypes))
+
+
+def _eager_iterations(exp, x, y):
+    """The device body applied straight to the trees, uncaptured."""
+    rows = []
+    for k in range(x.shape[0]):
+        inputs = {"features": torch.from_numpy(x[k]).to(exp.device),
+                  "draws": exp._window_draws(1, x.shape[1])[0]}
+        if exp.cv is not None:
+            inputs["labels"] = torch.from_numpy(y[k]).to(exp.device)
+        trees, row = exp._body(exp._trees(), inputs)
+        exp._set_trees(trees)
+        rows.append(row)
+    return torch.stack(rows)
+
+
+def _assert_same_states(a, b):
+    fa, fb = flatten_states(a.digest_states()), flatten_states(b.digest_states())
+    assert sorted(fa) == sorted(fb)
+    for key, value in fa.items():
+        if isinstance(value, torch.Tensor):
+            assert value.dtype == fb[key].dtype and torch.equal(value, fb[key]), key
+        else:
+            assert value == fb[key], key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,dtypes", [
+    ("mnist", {}), ("mnist", {"compute_dtype": "bf16"}), ("mnist", {"param_dtype": "bf16"}),
+    ("tabular", {}), ("cifar10", {}), ("wgan_gp", {}), ("wgan_gp", {"compute_dtype": "bf16"}),
+    ("wgan_gp", {"param_dtype": "bf16"}),
+])
+def test_a_captured_window_equals_the_eager_body_and_captures_each_key_once(card, family, dtypes):
+    """Two windows of 4 iterations (WGAN-GP rounds, the gradient penalty's
+    double backward inside the graph) as graph replays, against the device
+    body applied eagerly from the same init and draws: every leaf, dtype,
+    step counter and loss bit-equal. Each key is captured once; the second
+    window captures nothing."""
+    captured, eager = _train_experiment(family, **dtypes), _train_experiment(family, **dtypes)
+    assert captured.graphs.captured
+    x = captured.family.synthetic_data(8 * 16, captured.model_cfg, 3).reshape(2, 4, 16, -1)
+    y = np.eye(10, dtype=np.float32)[np.arange(8 * 16) % 10].reshape(2, 4, 16, 10)
+    for w in range(2):
+        rows = captured.train_iterations(x[w], y[w])
+        want = _eager_iterations(eager, x[w], y[w])
+        got = torch.stack([rows["d_loss"], rows["g_loss"], rows["cv_loss"]], dim=1)
+        assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))
+        _assert_same_states(captured, eager)
+        if w == 0:
+            counts = dict(captured.graphs.capture_counts)
+            assert counts and set(counts.values()) == {1}
+    assert captured.graphs.capture_counts == counts
