@@ -9,10 +9,12 @@ any phase fails. First the serving path:
 2. build ``gen`` and the transfer classifier ``cv`` and write a serving
    bundle with the port's serializer;
 3. load it with ``ServingEngine.from_bundle(..., device="cuda")``, warm up,
-   and check that every (kind, bucket) ran once and none after warmup;
+   and check that every (kind, bucket) was captured as a CUDA graph once
+   and none after warmup;
 4. for every kind and n in (1, 3, 8, 21, 130): the card's rows match the
    same bundle served on the CPU within 1e-4 (TF32 off), and the staged
-   ``run`` equals ``run_host`` bit for bit on the card;
+   ``run`` (a graph replay) equals ``run_host`` (the eager forward) bit for
+   bit on the card;
 5. serve it over HTTP (``make_server`` on an ephemeral port), send
    concurrent ``sample``/``classify``/``features`` requests and check status,
    shapes, softmax row sums and ``/healthz``;
@@ -128,8 +130,9 @@ m. the ``quant_dense`` kernel against its plain PyTorch version at both
    row tile, CTAs, shared memory) and what ``ptxas`` said of each kernel
    instance (registers, static shared memory, spills);
 n. the main path: the int8 bundle served on the card (launch count zeroed
-   before, read after): staged ``run`` equals ``run_host``, two launches
-   per run chunk, no first run after warmup, card vs CPU within two code
+   before, read after: the wrapper's, and replays × launches captured per
+   graph): staged ``run`` equals ``run_host``, two launches per run chunk,
+   no capture after warmup, card vs CPU within two code
    steps, resident bytes exactly 28,694,660, the generator byte-identical,
    the drift from the fp32 bundle within 5e-2 of the largest output, one
    HTTP ``classify``; then the device time of the two dense vertices per
@@ -140,10 +143,36 @@ o. ``measure_bundle_cost`` of the fp32, bf16 and int8 bundles (bytes
    a tiny dense bundle, rejecting an int8 variant calibrated on rows × 1e9
    for its accuracy.
 
+Then serving as the JAX engine serves, from one compiled (here: captured)
+program per (kind, bucket), and the planes around it:
+
+r. serving captured: the fp32 bundle, its ``build_bf16_variant`` and its
+   int8 variant, each (kind, bucket) captured once in warmup and none
+   after; staged ``run`` bit-equal to ``run_host`` for n in (1, 3, 8, 21,
+   130); card vs CPU within (k)'s and (n)'s limits; ``quant_dense``
+   replayed inside the int8 graphs bit-equal to its plain version; per
+   (kind, bucket), captured and uncaptured in one call: ``run`` ms (median
+   of 20), launch calls a run, busy share, kernels, capture seconds, pool
+   bytes;
+s. the mux on the card: one ``MuxRegistry`` of the three variants with one
+   ``SharedStagingPool`` behind ``make_server``; six closed-loop HTTP
+   clients with request keys: every answer ok, routed by
+   ``WeightedSplitter.assign``, within (r)'s limits of its variant's own
+   ``run_host``; the pool reused across variants; a ramp 1% → 100% and a
+   rolled-back one; forced brownout shedding the costliest variant first;
+   ``demote`` then ``ensure_resident`` re-capturing while others serve;
+t. reload on the card: a ``CheckpointStore``, ``ReloadController`` with the
+   real ``CanaryGate``; generation 1 published under six HTTP clients and
+   swapped in with zero non-ok answers and no capture after the new
+   engine's warmup, bit-equal to a fresh engine's ``run_host``; a poisoned
+   generation quarantined; ``POST /debug/trace?ms=200&block=1`` leaving a
+   ``torch.profiler`` trace.
+
 Every number is printed beside the card's name and power limit. The
 ``kernels`` line lists ``quant_dense`` (the JAX package has no Pallas
 kernel; its XLA-lowered ``quant_dense`` is the one op stock torch cannot
-fuse). The last line is
+fuse) with its launches on this slice's main path, (s), and by path. The
+last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 ``--json PATH`` also writes every measurement to PATH.
 """
@@ -153,6 +182,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -164,6 +194,7 @@ import tempfile
 import threading
 import time
 import traceback
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -245,15 +276,19 @@ def _check_outputs(engine, cpu_engine) -> dict:
     return errs
 
 
-def _post(base: str, kind: str, rows: np.ndarray):
+def _post(base: str, kind: str, rows: np.ndarray, **fields):
     req = urllib.request.Request(
-        f"{base}/v1/{kind}", data=json.dumps({"data": rows.tolist()}).encode(),
+        f"{base}/v1/{kind}", data=json.dumps({"data": rows.tolist(), **fields}).encode(),
         headers={"Content-Type": "application/json"},
     )
     t0 = time.perf_counter()
-    with urllib.request.urlopen(req, timeout=60) as r:
-        body = json.loads(r.read())
-        status = r.status
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            body = json.loads(r.read())
+            status = r.status
+    except urllib.error.HTTPError as exc:  # a 503 or 500 still answers JSON
+        body = json.loads(exc.read() or b"{}")
+        status = exc.code
     return status, body, time.perf_counter() - t0
 
 
@@ -1514,6 +1549,7 @@ def _phase_quant_kernel(fp32_dir: str, int8_dir: str, card: str) -> dict:
     return out
 
 
+@functools.lru_cache(maxsize=None)
 def _code_step(bundle_dir: str) -> float:
     """The most one moved activation code can change a quantized layer's
     output by: max over the int8 classifier's layers of
@@ -1580,7 +1616,8 @@ def _serving_breakdown(engines: dict, runs: int = 10) -> list:
     a ``DENSE_RANGE`` range (``_dense_ranges``): the device ms per run of
     the kernels launched inside the ranges, i.e. of the two dense vertices
     (their product, bias and activation), fp32 against int8, and how many
-    kernels that is per run."""
+    kernels that is per run. A replay runs no host code, so this window
+    runs the forward uncaptured (``engine.captured = False``)."""
     from gan_deeplearning4j_tpu_torch.serving.profile import _union_us
 
     rng = np.random.default_rng(SEED)
@@ -1611,10 +1648,14 @@ def _serving_breakdown(engines: dict, runs: int = 10) -> list:
                 row[f"{name}_device_busy_share"] = _union_us(spans) / wall_us
                 row[f"{name}_kernels_per_run"] = launches / runs
                 row[f"{name}_quant_dense_ms_per_run"] = quant_us / runs / 1e3
-                with _dense_ranges(), torch.profiler.profile(activities=[
-                        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]) as prof:
-                    for _ in range(runs):
-                        engine.run(kind, rows)
+                engine.captured = False
+                try:
+                    with _dense_ranges(), torch.profiler.profile(activities=[
+                            torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]) as prof:
+                        for _ in range(runs):
+                            engine.run(kind, rows)
+                finally:
+                    engine.captured = True
                 events = prof.events()
                 kernels = [k for ev in events
                            if ev.name == DENSE_RANGE and ev.device_type == torch.autograd.DeviceType.CPU
@@ -1637,9 +1678,12 @@ def _phase_int8_serve(fp32_dir: str, int8_dir: str, card: str) -> dict:
     the int8 variant on the card, warmed up, serving ``classify`` and
     ``features`` through the kernel at the ladder (1, 8, 32, 128), and one
     HTTP ``classify``. The kernel's launch count is zeroed just before and
-    read just after. Checks: staged ``run`` equals ``run_host``; no first run
-    after warmup; every run launches the kernel twice per chunk (two
-    quantized layers); the card against a CPU engine of the same bundle for
+    read just after: the wrapper's count (warmup's forward runs and captures,
+    ``run_host``) plus the replays' (``engine.kernel_launches()``: replays ×
+    launches captured per graph). Checks: staged ``run`` equals
+    ``run_host``; no capture after warmup; every run replays the kernel
+    twice per chunk (two quantized layers); the card against a CPU engine of
+    the same bundle for
     n in (1, 3, 8, 21, 130) within ``CPU_TOL`` + two code steps
     (``_code_step``: the card's float32 convolutions differ from the CPU's in
     the last ulp, which moves an activation code wherever x / act_scale lies
@@ -1649,11 +1693,16 @@ def _phase_int8_serve(fp32_dir: str, int8_dir: str, card: str) -> dict:
     ``_serving_breakdown`` against the fp32 bundle's engine."""
     from gan_deeplearning4j_tpu_torch.ops import linear
     from gan_deeplearning4j_tpu_torch.serving import InferenceService, ServingEngine, make_server
+    from gan_deeplearning4j_tpu_torch.serving.engine import WARMUP_RUNS
 
     linear.KERNEL_LAUNCHES["quant_dense"] = 0
     engine = ServingEngine.from_bundle(int8_dir, device="cuda")
     engine.warmup()
     warm_launches = linear.KERNEL_LAUNCHES["quant_dense"]
+
+    def replayed():
+        return engine.kernel_launches().get("quant_dense", 0)
+
     cpu = ServingEngine.from_bundle(int8_dir, device="cpu")
     fp32 = ServingEngine.from_bundle(fp32_dir, device="cuda")
     tol = CPU_TOL + 2.0 * _code_step(int8_dir)
@@ -1662,9 +1711,9 @@ def _phase_int8_serve(fp32_dir: str, int8_dir: str, card: str) -> dict:
     for kind in ("classify", "features"):
         for n in SIZES:
             rows = _rows(kind, n, rng)
-            before = linear.KERNEL_LAUNCHES["quant_dense"]
+            before = replayed()
             staged = engine.run(kind, rows)
-            per_run.add((linear.KERNEL_LAUNCHES["quant_dense"] - before) / -(-n // engine.buckets[-1]))
+            per_run.add((replayed() - before) / -(-n // engine.buckets[-1]))
             if not np.array_equal(staged, engine.run_host(kind, rows)) or not np.all(np.isfinite(staged)):
                 raise AssertionError(f"int8 {kind} n={n}: run differs from run_host, or non-finite")
             ref = cpu.run_host(kind, rows)
@@ -1686,7 +1735,7 @@ def _phase_int8_serve(fp32_dir: str, int8_dir: str, card: str) -> dict:
         server.server_close()
         service.close()
         thread.join(timeout=30)
-    launches = linear.KERNEL_LAUNCHES["quant_dense"]
+    launches = linear.KERNEL_LAUNCHES["quant_dense"] + replayed()
     breakdown = _serving_breakdown({"fp32": fp32, "int8": engine})
     http_rows = np.asarray(body.get("data"))
     with open(os.path.join(fp32_dir, "gen.zip"), "rb") as a, open(os.path.join(int8_dir, "gen.zip"), "rb") as b:
@@ -1708,7 +1757,8 @@ def _phase_int8_serve(fp32_dir: str, int8_dir: str, card: str) -> dict:
     if any(count < 2 for count, _ in ranged) or any(
             not any("quant_dense" in k for k in line["int8_dense_layers_kernel_names"]) for line in breakdown):
         raise AssertionError(f"int8 serving: the dense-vertex ranges hold too few kernels: {ranged}")
-    if (per_run != {2.0} or warm_launches != 2 * len(engine.buckets) * 2 or launches <= warm_launches
+    if (per_run != {2.0} or warm_launches != (WARMUP_RUNS + 1) * 2 * len(engine.buckets) * 2
+            or launches <= warm_launches
             or max(vs_cpu.values()) > tol or max(vs_fp32.values()) > INT8_SERVE_REL
             or resident != {"int8": INT8_RESIDENT, "fp32": FP32_RESIDENT} or not generator_identical
             or row["precision"] != "int8" or any(engine.serve_compile_counts.values())
@@ -1816,6 +1866,512 @@ def _phase_cost_and_canary(fp32_dir: str, int8_dir: str, directory: str, card: s
     return row
 
 
+# -- serving captured, the mux, the reload plane (r)-(t) ------------------------
+
+#: (r) host-clock runs per (kind, bucket) and mode, taken in turns
+SERVE_TIMED = 20
+#: (r) runs per profiler window
+SERVE_PROFILED = 10
+#: (s), (t) closed-loop HTTP clients; (s) seconds of load
+HTTP_CLIENTS, MUX_LOAD_S = 6, 3.0
+#: (s) the variants' routing weights
+MUX_WEIGHTS = {"fp32": 0.5, "bf16": 0.3, "int8": 0.2}
+
+
+def _serving_bundles(fp32_dir: str, int8_dir: str, directory: str) -> dict:
+    """The serving bundle in its three precisions: the fp32 bundle, its
+    ``build_bf16_variant`` and its int8 variant."""
+    from gan_deeplearning4j_tpu_torch.quant import build_bf16_variant
+
+    bf16_dir = os.path.join(directory, "serve_bf16")
+    if not os.path.exists(os.path.join(bf16_dir, "serving.json")):
+        build_bf16_variant(fp32_dir, bf16_dir)
+    return {"fp32": fp32_dir, "bf16": bf16_dir, "int8": int8_dir}
+
+
+def _serve_limit(precision: str, bundle_dir: str, ref: np.ndarray) -> float:
+    """How far a served row may lie from its reference on another device or
+    in another bucket: fp32 ``CPU_TOL``; bf16 ``BF16_SERVE_REL`` of the
+    largest output ((k)'s limit); int8 ``CPU_TOL`` + two code steps ((n)'s)."""
+    if precision == "bf16":
+        return BF16_SERVE_REL * max(float(np.max(np.abs(ref))), 1e-6)
+    if precision == "int8":
+        return CPU_TOL + 2.0 * _code_step(bundle_dir)
+    return CPU_TOL
+
+
+@contextlib.contextmanager
+def _plain_quant_dense():
+    """While open, ``QuantDenseLayer`` computes with ``quant_dense_plain``,
+    the kernel's plain PyTorch version, instead of launching the kernel."""
+    from gan_deeplearning4j_tpu_torch.ops import linear
+
+    kernel = linear.quant_dense
+    linear.quant_dense = linear.quant_dense_plain
+    try:
+        yield
+    finally:
+        linear.quant_dense = kernel
+
+
+def _host_ms(engine, kind: str, rows: np.ndarray, runs: int) -> list:
+    out = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        engine.run(kind, rows)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _serve_windows(engine, kind: str, rows: np.ndarray) -> dict:
+    """Two profiler windows of ``SERVE_PROFILED`` runs: the card only (the
+    device-busy share of the host's wall time, kernels and ``quant_dense``
+    kernels per run; a window in which the profiler recorded no kernel at
+    all, as happened once on the card, is taken again, up to twice), then
+    host and card (the host's calls that put work on the card, per run, by
+    name)."""
+    from gan_deeplearning4j_tpu_torch.serving.profile import _union_us
+
+    cuda = torch.autograd.DeviceType.CUDA
+    for attempt in range(3):  # a window that recorded no kernel is taken again
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(SERVE_PROFILED):
+                engine.run(kind, rows)
+            wall_us = (time.perf_counter() - t0) * 1e6
+        spans, kernels, quant = [], 0, 0
+        for ev in prof.events():
+            if ev.device_type != cuda:
+                continue
+            spans.append((ev.time_range.start, ev.time_range.end))
+            if not ev.name.startswith(("Memcpy", "Memset")):
+                kernels += 1
+                quant += "quant_dense" in ev.name
+        if kernels:
+            break
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(SERVE_PROFILED):
+            engine.run(kind, rows)
+    calls: dict = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CPU and ev.name in _LAUNCH_CALLS:
+            calls[ev.name] = calls.get(ev.name, 0) + 1 / SERVE_PROFILED
+    return {"device_busy_share": _union_us(spans) / wall_us, "device_ms_per_run": _union_us(spans) / SERVE_PROFILED / 1e3,
+            "empty_windows_retaken": attempt,
+            "kernels_per_run": kernels / SERVE_PROFILED, "quant_dense_kernels_per_run": quant / SERVE_PROFILED,
+            "launch_calls_per_run": calls, "launch_calls_total_per_run": sum(calls.values())}
+
+
+def _phase_serving_captured(fp32_dir: str, int8_dir: str, directory: str, card: str) -> dict:
+    """(r) Serving as CUDA-graph replays, for the fp32 bundle, its bf16 and
+    its int8 variant (the kernel's launch count zeroed before, read after):
+    every (kind, bucket) captured once in warmup and none after; staged
+    ``run`` (H2D into the static input, replay, D2H) bit-equal to
+    ``run_host`` (eager, default stream) for every kind and n in ``SIZES``
+    (130 spans two chunks); the card against the CPU within ``_serve_limit``;
+    for int8, the replayed graphs bit-equal to the same forward with
+    ``quant_dense_plain`` in place of the kernel. Then per (kind, bucket),
+    captured and uncaptured (``engine.captured = False``: the forward op by
+    op on the engine stream) in one call: ``run`` host ms (median of
+    ``SERVE_TIMED``, in turns), ``_serve_windows``, the capture's seconds
+    and its graph pool's bytes. The kernel's launches are counted as
+    replays × the launches captured into each graph; the profiler's
+    ``quant_dense`` kernels per captured run are beside, and must be
+    nonzero exactly where the graph holds the kernel."""
+    from gan_deeplearning4j_tpu_torch.ops import linear
+    from gan_deeplearning4j_tpu_torch.serving import ServingEngine
+
+    dirs = _serving_bundles(fp32_dir, int8_dir, directory)
+    rng = np.random.default_rng(SEED)
+    linear.KERNEL_LAUNCHES["quant_dense"] = 0
+    engines, summary, timing = {}, {}, []
+    for name, bundle in dirs.items():
+        engine = ServingEngine.from_bundle(bundle, device="cuda", export_gauge=False)
+        t0 = time.perf_counter()
+        engine.warmup()
+        warm_s = time.perf_counter() - t0
+        once = {k: len(engine.buckets) for k in engine.kinds}
+        if engine.compile_counts != once or not engine.stats()["captured"]:
+            raise AssertionError(f"(r) {name}: captures {engine.compile_counts}, want {once}")
+        cpu = ServingEngine.from_bundle(bundle, device="cpu", export_gauge=False)
+        vs_cpu, vs_plain = {}, {}
+        for kind in engine.kinds:
+            for n in SIZES:
+                rows = _rows(kind, n, rng)
+                staged = engine.run(kind, rows)
+                if not np.array_equal(staged, engine.run_host(kind, rows)) or not np.all(np.isfinite(staged)):
+                    raise AssertionError(f"(r) {name} {kind} n={n}: replay differs from run_host, or non-finite")
+                ref = cpu.run_host(kind, rows)
+                err = float(np.max(np.abs(staged - ref)))
+                if staged.shape != ref.shape or err > _serve_limit(name, bundle, ref):
+                    raise AssertionError(f"(r) {name} {kind} n={n}: card vs CPU {err}")
+                vs_cpu[kind] = max(vs_cpu.get(kind, 0.0), err)
+                if name == "int8" and kind != "sample":
+                    with _plain_quant_dense():
+                        plain = engine.run_host(kind, rows)
+                    vs_plain[kind] = max(vs_plain.get(kind, 0.0), float(np.max(np.abs(staged - plain))))
+        if any(vs_plain.values()):
+            raise AssertionError(f"(r) int8: quant_dense replayed differs from its plain version: {vs_plain}")
+        engines[name] = engine
+        summary[name] = {"warmup_and_capture_s": warm_s, "compile_counts": engine.compile_counts,
+                         "card_vs_cpu_max_abs_err": vs_cpu, "replay_vs_plain_quant_dense_max_abs_err": vs_plain,
+                         "graph_pool_bytes": engine.stats()["graph_pool_bytes"],
+                         "resident_param_bytes": engine.resident_param_bytes()}
+    for name, engine in engines.items():
+        for kind in engine.kinds:
+            for bucket in engine.buckets:
+                rows = _rows(kind, bucket, rng)
+                ms = {"captured": [], "uncaptured": []}
+                for mode in ("captured", "uncaptured", "uncaptured", "captured"):
+                    engine.captured = mode == "captured"
+                    _host_ms(engine, kind, rows, 3)
+                    ms[mode] += _host_ms(engine, kind, rows, SERVE_TIMED // 2)
+                graph = engine.graph_stats()[f"{kind}/{bucket}"]
+                row = {"phase": "serving_captured_timing", "precision": name, "kind": kind, "bucket": bucket,
+                       "capture_s": graph["capture_s"], "pool_bytes": graph["pool_bytes"],
+                       "launches_per_replay": graph["launches_per_replay"]}
+                for mode in ("uncaptured", "captured"):
+                    engine.captured = mode == "captured"
+                    row[mode] = {"run_ms": statistics.median(ms[mode]), **_serve_windows(engine, kind, rows)}
+                engine.captured = True
+                row["run_ms_uncaptured_to_captured"] = [row["uncaptured"]["run_ms"], row["captured"]["run_ms"]]
+                row["card"] = card
+                print(json.dumps(row))
+                timing.append(row)
+                # the profiler may drop a record at a window's edge (it saw
+                # 19 of 20 once): it must see the kernel, and no more of it
+                # than the graphs hold
+                seen, held = (row["captured"]["quant_dense_kernels_per_run"],
+                              graph["launches_per_replay"].get("quant_dense", 0))
+                if (seen > 0) != (held > 0) or seen > held:
+                    raise AssertionError(f"(r) {name} {kind}/{bucket}: the profiler's quant_dense kernels per "
+                                         f"replay {seen}, captured {graph['launches_per_replay']}")
+    launches = linear.KERNEL_LAUNCHES["quant_dense"] + sum(
+        e.kernel_launches().get("quant_dense", 0) for e in engines.values())
+    serve = {name: e.serve_compile_counts for name, e in engines.items()}
+    for engine in engines.values():
+        engine.close()
+    out = {"phase": "serving_captured", "precisions": summary, "serve_compile_counts": serve,
+           "kernel_launches": launches, "card": card}
+    print(json.dumps(out))
+    out["timing"] = timing
+    if any(v for counts in serve.values() for v in counts.values()) or launches <= 0:
+        raise AssertionError(f"(r) captures after warmup {serve}, or quant_dense launched {launches} times")
+    return out
+
+
+def _phase_mux(fp32_dir: str, int8_dir: str, directory: str, card: str) -> dict:
+    """(s) One ``MuxRegistry`` on the card holding the fp32, bf16 and int8
+    bundles with one ``SharedStagingPool`` (each bundle's ``cost`` block
+    measured anew), behind ``make_server`` on port 0.
+    ``HTTP_CLIENTS`` closed-loop clients send keyed requests for
+    ``MUX_LOAD_S`` seconds. Then a ramp of the int8 variant 1% → 100% on a
+    healthy signal, a ramp of the bf16 variant rolled back by an injected
+    failing one, brownout levels 1 and 2 forced, and the int8 variant
+    demoted and made resident again while a client keeps the others busy.
+    The kernel's launch count (wrapper and replays) is zeroed before and
+    read after. Checks: every answer ok; each key answered by
+    ``WeightedSplitter.assign``'s variant; each answer within
+    ``_serve_limit`` of its variant's own ``run_host`` (a rider shares its
+    flush, and so its bucket, with other riders; bit-equal ones are
+    counted); the pool allocates fewer buffers than the flushes it stages
+    for all three variants, and none for one flush of each variant in turn
+    after the load; the ramp completes, the rollback restores the other
+    weights exactly and zeroes the candidate's; the costliest variant sheds
+    first; the
+    re-warmed engine captured every (kind, bucket) with no fault, and no
+    engine captured after warmup."""
+    from gan_deeplearning4j_tpu_torch.ops import linear
+    from gan_deeplearning4j_tpu_torch.quant import measure_bundle_cost
+    from gan_deeplearning4j_tpu_torch.serving import make_server
+    from gan_deeplearning4j_tpu_torch.serving.mux import MuxRegistry, MuxService, SharedStagingPool
+
+    dirs = _serving_bundles(fp32_dir, int8_dir, directory)
+    # measured here, each on its own engine: a variant built from a bundle
+    # that carries a cost block carries its source's block (both packages)
+    for bundle in dirs.values():
+        measure_bundle_cost(bundle, device="cuda")
+    linear.KERNEL_LAUNCHES["quant_dense"] = 0
+    pool = SharedStagingPool()
+    registry = MuxRegistry(budget=3, device="cuda", staging_pool=pool,
+                           batcher_kwargs={"max_latency": 0.002, "default_timeout": 60.0})
+    t0 = time.perf_counter()
+    for name, bundle in dirs.items():
+        registry.add(name, bundle_path=bundle, weight=MUX_WEIGHTS[name])
+    warm_s = time.perf_counter() - t0
+    engines = {name: [registry.engine_for(name)] for name in dirs}
+    service = MuxService(registry)
+    server = make_server(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    results, errors, stop = [], [], threading.Event()
+
+    def client(i: int, pinned=None) -> None:
+        rng = np.random.default_rng(SEED + 100 + i)
+        j = 0
+        try:
+            while not stop.is_set():
+                kind = ("sample", "classify", "features")[(i + j) % 3]
+                rows = _rows(kind, (1, 3, 8, 21)[(i + 2 * j) % 4], rng)
+                fields = {"model": pinned} if pinned else {"key": f"user-{i}-{j % 40}"}
+                status, body, _ = _post(base, kind, rows, **fields)
+                results.append((fields, kind, rows, status, body))
+                j += 1
+        except Exception as exc:  # reported below; the phase fails
+            errors.append(repr(exc))
+
+    try:
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(HTTP_CLIENTS)]
+        for t in clients:
+            t.start()
+        time.sleep(MUX_LOAD_S)
+        stop.set()
+        for t in clients:
+            t.join(timeout=120)
+        loaded = list(results)
+        assigned = {f["key"]: registry.splitter.assign(f["key"]) for f, _, _, _, _ in loaded}
+        dispatches = sum(e.stats()["replica_dispatches"][0] for es in engines.values() for e in es)
+        pool_stats = pool.stats()
+        # one (bucket 8, width 784) flush per variant in turn: the pool
+        # hands each the buffer the one before checked in
+        x3 = _rows("classify", 3, np.random.default_rng(SEED))
+        cross = [_post(base, "classify", x3, model=name)[0] for name in dirs for _ in range(2)]
+        cross_allocated = pool.stats()["allocated_total"] - pool_stats["allocated_total"]
+
+        rows = _rows("classify", 3, np.random.default_rng(SEED))
+        ramp = service.start_ramp("int8", stages=(0.01, 0.1, 0.5, 1.0), hold_ticks=1, health=lambda: True)
+        ramp_states = []  # (state after the tick, HTTP status of a request then)
+        while ramp.state == "ramping" and len(ramp_states) < 10:
+            ramp_states.append((ramp.tick(), _post(base, "classify", rows, key=f"ramp-{len(ramp_states)}")[0]))
+        ramp_shares = registry.splitter.shares()
+        registry.set_weights(MUX_WEIGHTS)
+        script = iter([True, False])
+        rollback = service.start_ramp("bf16", stages=(0.01, 0.1, 0.5, 1.0), hold_ticks=1,
+                                      health=lambda: next(script, False))
+        rollback_states = [rollback.tick(), rollback.tick()]
+        rollback_weights = registry.splitter.weights()
+        registry.set_weights(MUX_WEIGHTS)
+
+        costs = registry.costs()
+        by_cost = sorted(costs, key=lambda n: (-costs[n], n))  # ties by name, as the service ranks
+        brownout = {}
+        for level in (1, 2):
+            service.set_brownout(level)
+            brownout[level] = {name: _post(base, "classify", rows, model=name)[0] for name in dirs}
+        service.set_brownout(0)
+
+        stop.clear()
+        busy = threading.Thread(target=client, args=(HTTP_CLIENTS, "fp32"))
+        busy.start()
+        try:
+            demoted = registry.demote("int8")
+            registry.ensure_resident("int8")
+        finally:
+            stop.set()
+            busy.join(timeout=120)
+        rewarmed = registry.engine_for("int8")
+        engines["int8"].append(rewarmed)
+        launches = linear.KERNEL_LAUNCHES["quant_dense"] + sum(
+            e.kernel_launches().get("quant_dense", 0) for e in engines["int8"])
+
+        bad = [(f, k, st, b.get("status")) for f, k, _, st, b in results if st != 200 or b.get("status") != "ok"]
+        misrouted = [f["key"] for f, _, _, _, b in loaded if b.get("model") != assigned[f["key"]]]
+        worst, equal, served = {}, 0, {}
+        for fields, kind, x, _, body in loaded:
+            model = body["model"]
+            served[model] = served.get(model, 0) + 1
+            want = engines[model][0].run_host(kind, x)
+            got = np.asarray(body["data"], dtype=np.float32)
+            if got.shape != want.shape:
+                raise AssertionError(f"(s) {model} {kind}: shape {got.shape} vs {want.shape}")
+            err = float(np.max(np.abs(got - want)))
+            if err > _serve_limit(model, dirs[model], want):
+                raise AssertionError(f"(s) {model} {kind} n={x.shape[0]}: {err} from its run_host")
+            worst[model] = max(worst.get(model, 0.0), err)
+            equal += bool(np.array_equal(got, want))
+        rerun = {kind: bool(np.array_equal(rewarmed.run(kind, _rows(kind, 130, np.random.default_rng(1))),
+                                           rewarmed.run_host(kind, _rows(kind, 130, np.random.default_rng(1)))))
+                 for kind in rewarmed.kinds}
+        serve = {name: [e.serve_compile_counts for e in es] for name, es in engines.items()}
+        row = {"phase": "mux", "warmup_and_capture_s": warm_s, "requests": len(loaded),
+               "requests_per_variant": served, "non_ok": bad[:5], "misrouted": misrouted[:5],
+               "client_errors": errors[:5], "max_abs_err_vs_own_run_host": worst,
+               "bit_equal_share": equal / max(len(loaded), 1), "pool": pool_stats,
+               "flushes_staged": dispatches, "cross_variant_statuses": cross,
+               "cross_variant_buffers_allocated": cross_allocated, "ramp_states": ramp_states, "ramp_shares": ramp_shares,
+               "rollback_states": rollback_states, "rollback_weights": rollback_weights, "costs": costs,
+               "cost_sources": registry.cost_sources(), "brownout_status": brownout,
+               "demoted": demoted, "rewarmed_compile_counts": rewarmed.compile_counts,
+               "rewarmed_warm_failed": rewarmed.warm_failed, "rewarmed_replay_equals_run_host": rerun,
+               "serve_compile_counts": serve, "graph_pool_bytes": {
+                   name: es[-1].stats()["graph_pool_bytes"] for name, es in engines.items()},
+               "kernel_launches": launches, "card": card}
+        print(json.dumps(row))
+        if (bad or misrouted or errors or len(served) != 3 or pool_stats["allocated_total"] >= dispatches
+                or cross != [200] * 6 or cross_allocated != 0
+                or ramp.state != "complete" or ramp_shares != {"int8": 1.0}
+                or rollback.state != "rolled_back" or rollback_weights != {**MUX_WEIGHTS, "bf16": 0.0}
+                or brownout[1] != {n: 503 if n == by_cost[0] else 200 for n in dirs}
+                or brownout[2] != {n: 200 if n == by_cost[-1] else 503 for n in dirs}
+                or not demoted or rewarmed is engines["int8"][0] or rewarmed.warm_failed
+                or rewarmed.compile_counts != {k: len(rewarmed.buckets) for k in rewarmed.kinds}
+                or not all(rerun.values()) or launches <= 0
+                or any(v for counts in serve.values() for c in counts for v in c.values())):
+            raise AssertionError(f"(s) mux: {row}")
+        return row
+    finally:
+        stop.set()
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=30)
+
+
+def _write_variant(src: str, dst: str, *, noise: float = 0.0, negate_output: bool = False,
+                   generation=None) -> None:
+    """A copy of the serving bundle ``src`` in ``dst``: the generator's float
+    leaves plus ``noise`` × seeded normal draws, and with ``negate_output``
+    the classifier's output layer negated (its argmax becomes its argmin)."""
+    from gan_deeplearning4j_tpu_torch.utils import write_model
+    from gan_deeplearning4j_tpu_torch.utils.serializer import read_model
+
+    with open(os.path.join(src, "serving.json")) as fh:
+        manifest = json.load(fh)
+    g = torch.Generator().manual_seed(SEED + 7)
+    gen, gen_params, _, _ = read_model(os.path.join(src, manifest["generator"]), load_updater=False, device="cpu")
+    cv, cv_params, _, _ = read_model(os.path.join(src, manifest["classifier"]), load_updater=False, device="cpu")
+    if noise:
+        gen_params = {layer: {k: t + noise * torch.randn(t.shape, generator=g) if t.is_floating_point() else t
+                              for k, t in leaves.items()} for layer, leaves in gen_params.items()}
+    if negate_output:
+        out = cv.output_names[0]
+        cv_params[out] = {k: -t for k, t in cv_params[out].items()}
+    write_model(os.path.join(dst, "gen.zip"), gen, gen_params, save_updater=False)
+    write_model(os.path.join(dst, "cv.zip"), cv, cv_params, save_updater=False)
+    keep = ("format_version", "family", "feature_vertex", "z_size", "num_features", "num_classes")
+    with open(os.path.join(dst, "serving.json"), "w") as fh:
+        json.dump({**{k: manifest[k] for k in keep if k in manifest}, "generator": "gen.zip",
+                   "classifier": "cv.zip", "generation": generation}, fh)
+
+
+def _phase_reload(fp32_dir: str, directory: str, card: str) -> dict:
+    """(t) The reload plane on the card: a port ``CheckpointStore`` whose
+    generation 0 is the serving bundle; an ``InferenceService`` booted from
+    it behind ``make_server`` on port 0, with ``ReloadController`` and the
+    real ``CanaryGate`` (64 synthetic MNIST rows labelled by the incumbent, 256
+    samples, as in (o))
+    attached and running. Under ``HTTP_CLIENTS`` closed-loop clients,
+    generation 1 (the generator's weights moved by 1e-3 normal draws) is
+    published and swapped in. Checks: zero non-ok answers; no capture on
+    the new engine after its warmup; its ``run`` bit-equal to a fresh
+    engine's ``run_host`` on generation 1 for every kind and n in
+    ``SIZES``. Then a poisoned generation 2 (the classifier's output layer
+    negated) is rejected by the canary and quarantined, and ``POST
+    /debug/trace?ms=200&block=1`` leaves a ``torch.profiler`` trace."""
+    from gan_deeplearning4j_tpu_torch.data import synthetic_mnist
+    from gan_deeplearning4j_tpu_torch.deploy import CanaryGate, ReloadController, StoreWatcher
+    from gan_deeplearning4j_tpu_torch.resilience import CheckpointStore
+    from gan_deeplearning4j_tpu_torch.serving import InferenceService, ServingEngine, make_server
+
+    store = CheckpointStore(os.path.join(directory, "reload_store"), keep_last=10)
+
+    def publish(**kw):
+        number = store.next_number()
+        return store.publish(lambda d: _write_variant(fp32_dir, d, generation=number, **kw),
+                             step=number, extra={"kind": "serving"})
+
+    g0 = publish()
+    engine = ServingEngine.from_bundle(g0.path, device="cuda")
+    service = InferenceService(engine, warmup="sync", max_latency=0.002, default_timeout=60.0,
+                               artifacts_dir=os.path.join(directory, "device_traces"))
+    (rows, _), _ = synthetic_mnist(num_train=64, num_test=1, seed=SEED)
+    labels = np.argmax(engine.run("classify", rows), axis=1)
+    controller = ReloadController(service, StoreWatcher(store=store),
+                                  canary=CanaryGate(rows, labels, num_samples=256, seed=SEED), poll_interval=0.1)
+    service.attach_reloader(controller)
+    server = make_server(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    results, errors, stop = [], [], threading.Event()
+
+    def client(i: int) -> None:
+        rng = np.random.default_rng(SEED + 200 + i)
+        j = 0
+        try:
+            while not stop.is_set():
+                kind = ("sample", "classify", "features")[(i + j) % 3]
+                status, body, _ = _post(base, kind, _rows(kind, (1, 3, 8, 21)[(i + j) % 4], rng))
+                results.append((kind, status, body.get("status")))
+                j += 1
+        except Exception as exc:  # reported below; the phase fails
+            errors.append(repr(exc))
+
+    controller.start()
+    try:
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(HTTP_CLIENTS)]
+        for t in clients:
+            t.start()
+        t0 = time.perf_counter()
+        g1 = publish(noise=1e-3)
+        while service.engine.generation != g1.number and time.perf_counter() - t0 < 300:
+            time.sleep(0.02)
+        swap_s = time.perf_counter() - t0
+        before = len(results)
+        while len(results) < before + 50 and time.perf_counter() - t0 < 300:
+            time.sleep(0.02)
+        stop.set()
+        for t in clients:
+            t.join(timeout=120)
+        new = service.engine
+        # the candidate was built on a ladder learned from the incumbent's traffic
+        fresh = ServingEngine.from_bundle(g1.path, buckets=new.buckets, device="cuda", export_gauge=False)
+        rng = np.random.default_rng(SEED)
+        swapped_equal = {kind: all(np.array_equal(new.run(kind, x), fresh.run_host(kind, x))
+                                   for x in (_rows(kind, n, rng) for n in SIZES))
+                         for kind in new.kinds}
+        g2 = publish(negate_output=True)
+        poisoned = controller.poll_now(wait=True, timeout=300)
+        entry = store.entry(g2.number)
+        code, trace = _post_path(base, "/debug/trace?ms=200&block=1")
+        trace_file = os.path.join(trace.get("artifact", ""), "trace.json")
+        trace_bytes = os.path.getsize(trace_file) if os.path.exists(trace_file) else 0
+        bad = [r for r in results if r[1] != 200 or r[2] != "ok"]
+        row = {"phase": "reload", "requests": len(results), "non_ok": bad[:5], "client_errors": errors[:5],
+               "swap_wait_s": swap_s, "swap_events": [e for e in controller.events if e["event"] == "swap"],
+               "served_generation": new.generation, "new_engine_compile_counts": new.compile_counts,
+               "new_engine_serve_compile_counts": new.serve_compile_counts,
+               "swapped_equals_fresh_run_host": swapped_equal,
+               "poisoned": {"status": entry.get("status"), "reason": entry.get("reason"),
+                            "rejected": poisoned["rejected"], "generation_after": service.engine.generation},
+               "debug_trace": {"http": code, "bytes": trace_bytes}, "reload": service.healthz().get("reload"),
+               "card": card}
+        print(json.dumps(row))
+        if (bad or errors or new.generation != g1.number or any(new.serve_compile_counts.values())
+                or new.compile_counts != {k: len(new.buckets) for k in new.kinds}
+                or not all(swapped_equal.values()) or entry.get("status") != "quarantined"
+                or poisoned["rejected"] != 1 or service.engine.generation != g1.number
+                or code != 200 or trace_bytes <= 0):
+            raise AssertionError(f"(t) reload: {row}")
+        return row
+    finally:
+        stop.set()
+        controller.stop()
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=30)
+
+
+def _post_path(base: str, path: str):
+    req = urllib.request.Request(f"{base}{path}", data=b"{}", headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.status, json.loads(r.read())
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--json", default=None, help="also write every measurement to this file")
@@ -1885,14 +2441,18 @@ def main(argv=None) -> int:
                          ("quant_kernel", lambda: _phase_quant_kernel(directory, int8_dir, card)),
                          ("int8_serve", lambda: _phase_int8_serve(directory, int8_dir, card)),
                          ("cost_and_canary",
-                          lambda: _phase_cost_and_canary(directory, int8_dir, directory, card))):
+                          lambda: _phase_cost_and_canary(directory, int8_dir, directory, card)),
+                         ("serving_captured",
+                          lambda: _phase_serving_captured(directory, int8_dir, directory, card)),
+                         ("mux", lambda: _phase_mux(directory, int8_dir, directory, card)),
+                         ("reload", lambda: _phase_reload(directory, directory, card))):
             try:
                 families[key] = run()
             except Exception:  # reported, and the run fails below
                 traceback.print_exc()
                 failed.append(key)
     if failed:
-        print(f"chip_smoke: family / bf16 / window / int8 phases failed: {failed}", file=sys.stderr)
+        print(f"chip_smoke: family / bf16 / window / int8 / serving phases failed: {failed}", file=sys.stderr)
         return 1
     top = engine.buckets[-1]
     for row in ladder:
@@ -1914,7 +2474,10 @@ def main(argv=None) -> int:
         "name": "quant_dense", "route": "cuda",
         "source": "gan_deeplearning4j_tpu_torch/csrc/quant_dense.cu",
         "replaces": "gan_deeplearning4j_tpu/ops/linear.py:34",
-        "launches": families["int8_serve"]["kernel_launches"],
+        "launches": families["mux"]["kernel_launches"],
+        "launches_by_path": {"int8_serve (n)": families["int8_serve"]["kernel_launches"],
+                             "serving_captured (r)": families["serving_captured"]["kernel_launches"],
+                             "mux (s)": families["mux"]["kernel_launches"]},
         "max_abs_err": quant["max_abs_err"], "ms": top["kernel_ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"], "library_ms": top["library_ms"],
         "shape": "x (128, 1152) fp32 · W_q (1152, 1024) int8 (dis_dense_layer_6)",

@@ -48,9 +48,11 @@ CPU tests hold against the JAX package.
 Capture on the card: the body runs ``WARMUP_RUNS`` times on a side stream
 without its write-back (the first run shows the target layout; nothing
 trains, so nothing needs restoring), then ``torch.cuda.graph`` captures
-body and write-back on that stream into a private memory pool, with
-Python's cyclic collector run before and held off during it (a graph of an
-unreachable experiment destroyed mid-capture ends the capture). A capture
+body and write-back on that stream into a private memory pool, under the
+process-wide capture lock (``runtime/capture.py``; serving engines capture
+in the same process) in ``"thread_local"`` mode, with Python's cyclic
+collector run before and held off during it (a graph of an unreachable
+experiment destroyed mid-capture ends the capture). A capture
 that fails raises; there is no eager fallback. ``capture_counts`` counts
 captures by key, and a second capture of one key raises.
 """
@@ -58,13 +60,13 @@ captures by key, and a second capture of one key raises.
 from __future__ import annotations
 
 import dataclasses
-import gc
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from gan_deeplearning4j_tpu_torch.parallel.trainer import TrainState
+from gan_deeplearning4j_tpu_torch.runtime.capture import CAPTURE_ERROR_MODE, capture_guard
 
 Body = Callable[[Dict, Dict[str, torch.Tensor]], Tuple[Dict, torch.Tensor]]
 
@@ -270,19 +272,13 @@ class CapturedIterations:
         graph = torch.cuda.CUDAGraph()
         # an unreachable experiment's graph that the cyclic collector
         # destroyed mid-capture would end the capture: collect first, and
-        # not during it
-        gc.collect()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, stream=side):
+        # not during it; one capture at a time in the process
+        with capture_guard():
+            with torch.cuda.graph(graph, stream=side, capture_error_mode=CAPTURE_ERROR_MODE):
                 reserved = torch.cuda.memory_reserved(self.device)
                 leaves, _, _, row = self._apply(entry, steps)
                 self._write_back(entry, leaves, row)
             del leaves, row
-        finally:
-            if collecting:
-                gc.enable()
         entry.graph = graph
         torch.cuda.synchronize(self.device)
         entry.stats = {"warmup_and_capture_s": time.perf_counter() - t0,

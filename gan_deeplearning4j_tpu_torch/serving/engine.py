@@ -6,21 +6,37 @@ Loads serializer checkpoints (``utils/serializer.read_model``), keeps the
 weights on the device once, and pads every request up to the smallest
 bucket of the ladder, so the device only ever sees bucket shapes.
 
-- **First runs, the compile-ladder analog.** PyTorch runs eagerly; what a
-  new shape costs here is its first run (cuDNN and cuBLAS plan selection,
-  caching-allocator blocks). ``warmup()`` runs every (kind, bucket) once
-  before the first request. ``compile_counts`` counts those first runs,
-  ``serve_compile_counts`` counts a (kind, bucket) first run after warmup
-  (the fast-path contract: it stays 0), and ``expected_max_compiles`` is
-  ``len(buckets)``.
+- **Captures, the compile-ladder analog.** On the card each (kind, bucket)
+  is one captured CUDA graph, the counterpart of the JAX engine's AOT
+  executable (``_executable``): its static input is a device tensor of
+  bucket shape and its static output the forward's result. ``warmup()``
+  captures every (kind, bucket) before the first request (a request for an
+  uncaptured one captures it first, under the capture lock, as JAX
+  compiles on its ``_compile_lock``); ``compile_counts`` counts captures,
+  ``serve_compile_counts`` the captures made after warmup (the fast-path
+  contract: it stays 0), and ``expected_max_compiles`` is
+  ``len(buckets)``. A capture runs the forward ``WARMUP_RUNS`` times on a
+  side stream (cuDNN and cuBLAS pick their kernels), then captures it into
+  the engine's one graph memory pool, under the process-wide
+  ``runtime/capture.py::CAPTURE_LOCK`` in ``"thread_local"`` mode with
+  Python's collector held off. A capture that fails raises and marks
+  warmup failed (``warm_failed``, which ``/healthz`` shows): the engine
+  never serves eager in its place. ``captured = False`` runs the same
+  forward uncaptured on the engine stream (what ``chip_smoke.py`` times
+  beside the replays); on the CPU the engine is always uncaptured, and
+  ``compile_counts`` counts first runs.
 - **Staging.** Each (kind, bucket) keeps a small pool of pinned host
   buffers whose pad tail is kept at zero by a high-water mark, so
   assembling a flush is one memcpy per rider and at most one memset of the
-  shrink delta.
-- **dispatch / finalize.** ``dispatch()`` copies the staging buffer to the
-  card with a non-blocking H2D copy on the engine's own CUDA stream, runs
-  the forward pass there, copies the result into a pinned per-flight
-  output buffer with a non-blocking D2H copy and records an event;
+  shrink delta. The mux passes one ``staging_pool`` (``serving/mux/
+  registry.py::SharedStagingPool``) that every resident engine shares.
+- **dispatch / finalize.** ``dispatch()`` copies the staging buffer into
+  the graph's static input with a non-blocking H2D copy on the engine's
+  own CUDA stream, replays the graph there, copies the static output into
+  a pinned per-flight output buffer with a non-blocking D2H copy and
+  records an event; the three are enqueued under one per-engine lock, so
+  flights dispatched from several threads never interleave on the static
+  buffers or on the graphs' shared pool;
   ``finalize()`` waits on that event and slices the padding off. A staging
   buffer returns to the pool only after its flight's event, because the
   H2D copy reads it asynchronously. On the CPU the forward pass runs
@@ -41,10 +57,8 @@ bucket of the ladder, so the device only ever sees bucket shapes.
   engine serves it.
 
 Not yet ported (ROADMAP.md queue 1): conditional zoo bundles ("Class
-conditioning"); more than one replica and
-the mesh bulk lane, CUDA-graph capture, the shared staging pool of the mux
-plane ("Serving, the rest"). A bundle that needs one of them is refused at
-load.
+conditioning"), refused at load; more than one replica and the mesh bulk
+lane ("Serving, the rest"), refused at construction.
 
 Request kinds (a generator-only bundle, as the tabular, image and WGAN-GP
 families publish, serves ``sample`` alone):
@@ -60,11 +74,17 @@ from __future__ import annotations
 import json
 import os
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from gan_deeplearning4j_tpu_torch.runtime.capture import (
+    CAPTURE_ERROR_MODE,
+    CAPTURE_LOCK,
+    capture_guard,
+)
 from gan_deeplearning4j_tpu_torch.runtime.device import (
     DeviceLike,
     pin_fp32_precision,
@@ -78,6 +98,9 @@ DEFAULT_BUCKETS = (1, 8, 32, 128)
 
 #: staging buffers kept per (kind, bucket)
 _POOL_LIMIT = 4
+
+#: forward runs on the side stream before a (kind, bucket) is captured
+WARMUP_RUNS = 2
 
 
 def _refuse_unported(scenario: Optional[dict]) -> None:
@@ -106,6 +129,25 @@ class _StagingBuf:
         if self.high_water > n:
             self.arr[n:self.high_water] = 0.0
         self.high_water = n
+
+
+class _Capture:
+    """One (kind, bucket) captured on the card: the graph, its static input
+    ``x`` and output ``y``, and what the capture cost. ``launches`` counts
+    the port's hand-written kernels launched into the graph
+    (``ops.linear.KERNEL_LAUNCHES`` moved by the capture): each replay
+    launches them again, with no wrapper call to count it."""
+
+    __slots__ = ("graph", "x", "y", "replays", "capture_s", "pool_bytes", "launches")
+
+    def __init__(self, graph, x, y, capture_s: float, pool_bytes: int, launches: Dict[str, int]):
+        self.graph = graph
+        self.x = x
+        self.y = y
+        self.replays = 0
+        self.capture_s = capture_s
+        self.pool_bytes = pool_bytes
+        self.launches = launches
 
 
 class _Flight:
@@ -143,6 +185,7 @@ class ServingEngine:
         scenario: Optional[dict] = None,
         device: DeviceLike = None,
         export_gauge: bool = True,
+        staging_pool=None,
     ):
         if not models:
             raise ValueError("ServingEngine needs at least one model")
@@ -246,6 +289,8 @@ class ServingEngine:
         )
         if export_gauge:
             self.export_generation()
+        # the mux passes one pool that every resident engine shares
+        self._shared_staging = staging_pool
         self._staging: Dict[Tuple[str, int], List[_StagingBuf]] = {}
         self._outstanding = 0  # dispatched-but-unfinalized flushes
         self._dispatches = 0
@@ -256,6 +301,16 @@ class ServingEngine:
         # the engine's own stream: staged H2D copies, the forward pass and
         # the D2H copy of a flush are ordered on it, off the default stream
         self._stream = torch.cuda.Stream(self.device) if self._cuda else None
+        #: replay the (kind, bucket) graphs (the card only); False runs the
+        #: same forward uncaptured on the engine stream
+        self.captured = self._cuda
+        self._captures: Dict[Tuple[str, int], _Capture] = {}
+        self._released_launches: Dict[str, int] = {}  # replays of closed graphs
+        # the H2D, replay and D2H of one flight are enqueued under this
+        # lock: the graphs share one memory pool and each its static buffers
+        self._replay_lock = threading.Lock()
+        self._graph_pool = torch.cuda.graph_pool_handle() if self._cuda else None
+        self._capture_stream = torch.cuda.Stream(self.device) if self._cuda else None
         if self._cuda:
             # params were written on the default stream; the engine stream
             # must not read them before those copies land
@@ -276,6 +331,7 @@ class ServingEngine:
         scenario: Optional[dict] = None,
         device: DeviceLike = None,
         export_gauge: bool = True,
+        staging_pool=None,
     ) -> "ServingEngine":
         """Restore from serializer checkpoint zips. Updater state is never
         loaded — a serving replica has no optimizer."""
@@ -293,12 +349,13 @@ class ServingEngine:
         return cls(models, buckets=buckets, feature_vertex=feature_vertex,
                    replicas=replicas, generation=generation,
                    precision=precision, scenario=scenario, device=dev,
-                   export_gauge=export_gauge)
+                   export_gauge=export_gauge, staging_pool=staging_pool)
 
     @classmethod
     def from_bundle(
         cls, directory: str, *, buckets: Optional[Sequence[int]] = None,
         replicas=1, device: DeviceLike = None, export_gauge: bool = True,
+        staging_pool=None,
     ) -> "ServingEngine":
         """Load a ``serving.json`` bundle (as the JAX package's
         ``GanExperiment.publish_for_serving`` writes it). ``buckets=None``
@@ -333,6 +390,7 @@ class ServingEngine:
             scenario=manifest.get("zoo"),
             device=device,
             export_gauge=export_gauge,
+            staging_pool=staging_pool,
         )
 
     # -- introspection ------------------------------------------------------
@@ -371,20 +429,22 @@ class ServingEngine:
 
     @property
     def compile_counts(self) -> Dict[str, int]:
-        """First runs per kind so far (warmup + serve-time); each stays
-        ``<= expected_max_compiles``."""
+        """Captures per kind so far on the card (first runs on the CPU),
+        warmup and serve-time; each stays ``<= expected_max_compiles``."""
         with self._lock:
             return dict(self._compile_counts)
 
     @property
     def serve_compile_counts(self) -> Dict[str, int]:
-        """First runs AFTER warmup completed; the contract is 0 per kind."""
+        """Captures (first runs) AFTER warmup completed; the contract is 0
+        per kind."""
         with self._lock:
             return dict(self._serve_compiles)
 
     @property
     def expected_max_compiles(self) -> int:
-        """One first run per bucket per kind (one replica, no bulk lane)."""
+        """One capture (first run) per bucket per kind, as for one JAX
+        replica (no bulk lane)."""
         return len(self.buckets)
 
     @property
@@ -408,9 +468,30 @@ class ServingEngine:
                    for params in self._params.values()
                    for leaves in params.values() for t in leaves.values())
 
+    def graph_stats(self) -> Dict[str, dict]:
+        """Per captured ``"kind/bucket"``: replays, capture seconds (warmup
+        runs included), the graph pool's bytes reserved by the capture, and
+        the hand-written kernels' launches per replay."""
+        with self._lock:
+            return {f"{k}/{b}": {"replays": c.replays, "capture_s": c.capture_s,
+                                 "pool_bytes": c.pool_bytes, "launches_per_replay": dict(c.launches)}
+                    for (k, b), c in self._captures.items()}
+
+    def kernel_launches(self) -> Dict[str, int]:
+        """The hand-written kernels' launches made by replays so far: per
+        kernel, replays × launches per replay, summed over the graphs (those
+        released by :meth:`close` included)."""
+        with self._lock:
+            out = dict(self._released_launches)
+            for c in self._captures.values():
+                for name, n in c.launches.items():
+                    out[name] = out.get(name, 0) + n * c.replays
+        return out
+
     def stats(self) -> dict:
         """Engine-side observability merged into the service /metrics (the
-        JAX engine's keys, and ``resident_param_bytes``)."""
+        JAX engine's keys; ``resident_param_bytes``; on the card whether
+        requests replay graphs and the bytes of the graphs' pool)."""
         with self._lock:
             return {
                 "replicas": 1,
@@ -424,6 +505,8 @@ class ServingEngine:
                 "padded_rows_wasted": dict(self._padded_waste),
                 "buckets": list(self.buckets),
                 "compiled_per_replica": [len(self._ran)],
+                "captured": self.captured,
+                "graph_pool_bytes": sum(c.pool_bytes for c in self._captures.values()),
                 "warmup": "warm" if self._warmed else (
                     "warming" if self.warming else (
                         "failed" if self._warm_error is not None else "cold")),
@@ -437,8 +520,8 @@ class ServingEngine:
         return self.buckets[-1]
 
     def _note_run(self, kind: str, bucket: int) -> None:
-        """Count the first run of (kind, bucket); one after warmup finished
-        (or failed) is a serve-time first run."""
+        """Count the capture (first run, on the CPU) of (kind, bucket); one
+        after warmup finished (or failed) is a serve-time one."""
         with self._lock:
             if (kind, bucket) in self._ran:
                 return
@@ -455,15 +538,72 @@ class ServingEngine:
             return fn(self._params[role], x)
 
     def _warm_one(self, kind: str, bucket: int) -> None:
+        if self._cuda:
+            self._capture(kind, bucket)
+            return
         with TRACER.span("serve.engine.warm", kind=kind, bucket=bucket):
-            x = torch.zeros((bucket, self._in_width[kind]), dtype=torch.float32)
-            if self._cuda:
-                with torch.cuda.stream(self._stream):
-                    self._forward(kind, x.to(self.device, non_blocking=True))
-                self._stream.synchronize()
-            else:
-                self._forward(kind, x)
+            self._forward(kind, torch.zeros((bucket, self._in_width[kind]), dtype=torch.float32))
         self._note_run(kind, bucket)
+
+    def _capture(self, kind: str, bucket: int) -> _Capture:
+        """The (kind, bucket) graph, captured now unless it already is. A
+        failure raises and marks warmup failed."""
+        from gan_deeplearning4j_tpu_torch.ops.linear import KERNEL_LAUNCHES
+
+        key = (kind, bucket)
+        with capture_guard():
+            cap = self._captures.get(key)
+            if cap is not None:
+                return cap
+            try:
+                with TRACER.span("serve.engine.capture", kind=kind, bucket=bucket):
+                    t0 = time.perf_counter()
+                    side = self._capture_stream
+                    with torch.cuda.stream(self._stream):
+                        x = torch.zeros((bucket, self._in_width[kind]), dtype=torch.float32,
+                                        device=self.device)
+                    side.wait_stream(self._stream)
+                    with torch.cuda.stream(side):
+                        for _ in range(WARMUP_RUNS):
+                            self._forward(kind, x)
+                    launched = dict(KERNEL_LAUNCHES)
+                    reserved = torch.cuda.memory_reserved(self.device)
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.stream(side):
+                        graph.capture_begin(pool=self._graph_pool, capture_error_mode=CAPTURE_ERROR_MODE)
+                        try:
+                            y = self._forward(kind, x)
+                        finally:
+                            graph.capture_end()
+                    pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+                    launches = {k: v - launched.get(k, 0) for k, v in KERNEL_LAUNCHES.items()
+                                if v != launched.get(k, 0)}
+                    self._stream.wait_stream(side)
+                    side.synchronize()
+                    cap = _Capture(graph, x, y, time.perf_counter() - t0, pool_bytes, launches)
+            except BaseException as exc:
+                self._warm_error = exc
+                raise
+            with self._lock:
+                self._captures[key] = cap
+        self._note_run(kind, bucket)
+        return cap
+
+    def close(self) -> None:
+        """Drop the captured graphs (under the capture lock: a graph's
+        destruction must not land inside another thread's capture). Call it
+        once no flight is in flight; a later request captures again."""
+        if not self._cuda:
+            return
+        with CAPTURE_LOCK:
+            launched = self.kernel_launches()
+            with self._lock:
+                captures, self._captures = self._captures, {}
+                self._released_launches = launched
+                self._ran.clear()
+            for cap in captures.values():
+                cap.graph.reset()
+            captures.clear()
 
     def warmup(self, background: bool = False):
         """Run every (kind, bucket) once so that no request pays a first
@@ -514,6 +654,8 @@ class ServingEngine:
 
     # -- staging pool -------------------------------------------------------
     def _checkout(self, kind: str, bucket: int) -> _StagingBuf:
+        if self._shared_staging is not None:
+            return self._shared_staging.checkout(bucket, self._in_width[kind])
         with self._lock:
             pool = self._staging.get((kind, bucket))
             if pool:
@@ -521,6 +663,11 @@ class ServingEngine:
         return _StagingBuf(bucket, self._in_width[kind], pin=self._cuda)
 
     def _release(self, kind: str, buf: _StagingBuf) -> None:
+        if self._shared_staging is not None:
+            self._shared_staging.checkin(buf)
+            with self._lock:
+                self._outstanding -= 1
+            return
         with self._lock:
             pool = self._staging.setdefault((kind, buf.arr.shape[0]), [])
             if len(pool) < _POOL_LIMIT:
@@ -585,19 +732,30 @@ class ServingEngine:
                 self._dispatches += 1
             self._c_dispatches.inc()
             try:
-                self._note_run(kind, bucket)
-                out, event = self._launch(kind, buf)
+                out, event = self._launch(kind, bucket, buf)
             except BaseException:
                 self._release(kind, buf)
                 raise
             parts.append((out, n, buf, event))
             remaining -= n
 
-    def _launch(self, kind: str, buf: _StagingBuf):
+    def _launch(self, kind: str, bucket: int, buf: _StagingBuf):
         """Run one staged bucket: ``(host_out, event)`` on the card,
         ``(result, None)`` on the CPU."""
         if not self._cuda:
+            self._note_run(kind, bucket)
             return self._forward(kind, buf.tensor), None
+        if self.captured:
+            cap = self._captures.get((kind, bucket)) or self._capture(kind, bucket)
+            host = torch.empty(cap.y.shape, dtype=cap.y.dtype, pin_memory=True)
+            event = torch.cuda.Event()
+            with self._replay_lock, torch.cuda.stream(self._stream):
+                cap.x.copy_(buf.tensor, non_blocking=True)
+                cap.graph.replay()
+                host.copy_(cap.y, non_blocking=True)
+                event.record(self._stream)
+                cap.replays += 1
+            return host, event
         with torch.cuda.stream(self._stream):
             x = buf.tensor.to(self.device, non_blocking=True)
             y = self._forward(kind, x)
@@ -633,7 +791,8 @@ class ServingEngine:
     def run_host(self, kind: str, rows: np.ndarray) -> np.ndarray:
         """Reference path: pad each chunk with a fresh ``np.zeros`` +
         ``np.concatenate``, copy it synchronously on the default stream, run
-        and copy back. The bit-exactness oracle for the staged path."""
+        the forward eagerly there and copy back. The bit-exactness oracle
+        for the staged (captured) path; it captures nothing."""
         rows = np.asarray(rows, dtype=np.float32)
         self._validate(kind, [rows])
         top = self.buckets[-1]
@@ -644,7 +803,8 @@ class ServingEngine:
             if chunk.shape[0] < bucket:
                 pad = np.zeros((bucket - chunk.shape[0], chunk.shape[1]), np.float32)
                 chunk = np.concatenate([chunk, pad])
-            self._note_run(kind, bucket)
+            if not self._cuda:
+                self._note_run(kind, bucket)
             y = self._forward(kind, torch.from_numpy(chunk).to(self.device))
             outs.append(y.cpu().numpy()[: min(top, rows.shape[0] - start)])
         return outs[0] if len(outs) == 1 else np.concatenate(outs)

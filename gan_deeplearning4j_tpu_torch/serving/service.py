@@ -14,16 +14,23 @@ Endpoints:
   ``?format=prom`` switches to Prometheus text exposition;
   ``?scope=registry`` returns the raw registry snapshot with samples
 - ``X-Trace-Id`` on ``POST`` requests propagates a correlation id
+- ``POST /debug/trace?ms=N``  on-demand ``torch.profiler`` capture into
+  the service's artifacts dir (``telemetry/device.py``) — 202 + the
+  artifact path (async; ``block=1`` waits for 200), 409 while one runs
+- ``POST /admin/reload``  force an immediate reload-plane poll (202;
+  ``block=1`` waits for the cycle and answers 200; 409 while a reload is
+  in progress or when no reload plane is attached)
+- ``POST /admin/drain``   mark this worker draining (``off=1`` clears):
+  ``/healthz`` reports ``"draining"`` while requests already in the
+  pipeline still finalize; the worker itself sheds nothing
 - ``GET  /debug/spans``  the span tracer's Chrome trace JSON
 
 Shed responses map to HTTP 503 (overloaded / deadline), engine errors to
 500, bad requests to 400, unknown kinds and routes to 404.
 
-Not yet ported (ROADMAP.md queue 1, 'Serving, the rest'): ``POST
-/debug/trace`` device captures, ``/admin/reload`` and ``/admin/drain``,
-and conditional sampling: every bundle the port loads is unconditional,
-so ``?class=k`` answers 400 as it does for an unconditional bundle in the
-JAX service.
+Every bundle the port loads is unconditional (conditional bundles wait
+for ROADMAP.md queue 1, 'Class conditioning'), so ``?class=k`` answers
+400 as it does for an unconditional bundle in the JAX service.
 """
 
 from __future__ import annotations
@@ -73,7 +80,17 @@ class InferenceService:
         default_timeout: float = 5.0,
         warmup="sync",
         pipeline_depth: Optional[int] = None,
+        artifacts_dir: Optional[str] = None,
     ):
+        # where POST /debug/trace dumps device captures (resolved lazily so
+        # constructing a service never touches the filesystem)
+        self.artifacts_dir = artifacts_dir
+        # the reload control plane (deploy.ReloadController), when attached:
+        # owns POST /admin/reload and the /healthz "reload" block
+        self.reloader = None
+        # POST /admin/drain: advisory — the worker keeps answering, but
+        # /healthz stops reporting "ok" while its pipeline empties
+        self.draining = False
         if warmup in (True, "sync"):
             engine.warmup()
         elif warmup in ("eager", "background"):
@@ -95,6 +112,11 @@ class InferenceService:
         lock-guarded seam."""
         return self.batcher.engine
 
+    def attach_reloader(self, controller) -> None:
+        """Wire a ``deploy.ReloadController``: enables POST /admin/reload
+        and the /healthz candidate-state block."""
+        self.reloader = controller
+
     # -- typed convenience wrappers ----------------------------------------
     def sample(self, z, timeout: Optional[float] = None) -> ServeResult:
         return self.batcher.submit("sample", z, timeout=timeout)
@@ -110,6 +132,8 @@ class InferenceService:
         engine = self.engine
         if engine.warm_failed:
             status = "error"
+        elif self.draining:
+            status = "draining"
         elif engine.warming:
             status = "warming"
         else:
@@ -124,6 +148,8 @@ class InferenceService:
         }
         if engine.scenario is not None:
             body["scenario"] = dict(engine.scenario)
+        if self.reloader is not None:
+            body["reload"] = self.reloader.status()
         if status == "error":
             body["error"] = "engine warmup failed"
         return body
@@ -134,6 +160,7 @@ class InferenceService:
         return {
             **self.batcher.metrics(),
             "generation": engine.generation,
+            "draining": self.draining,
             "engine": engine.stats(),
             "compile_counts": engine.compile_counts,
         }
@@ -142,6 +169,51 @@ class InferenceService:
         """Prometheus text exposition of the process-wide registry —
         ``GET /metrics?format=prom``."""
         return get_registry().to_prometheus()
+
+    def _debug_trace(self, params: dict) -> Tuple[int, dict]:
+        """POST /debug/trace?ms=N — one bounded ``torch.profiler`` capture,
+        dumped under the artifacts dir. Asynchronous by default (202 + the
+        directory the trace will land in); ``block=1`` waits and answers
+        200 once the trace is on disk."""
+        from gan_deeplearning4j_tpu_torch.telemetry import device as _device
+
+        try:
+            ms = int(params.get("ms", ["1000"])[0])
+            if ms < 1 or ms > 60_000:
+                raise ValueError(ms)
+        except (TypeError, ValueError):
+            return 400, {"status": "error",
+                         "error": f"bad 'ms': {params.get('ms')!r} (want 1..60000)"}
+        block = params.get("block", ["0"])[0] not in ("0", "", "false")
+        artifacts = self.artifacts_dir or _device.default_artifacts_dir()
+        try:
+            if block:
+                path = _device.capture_device_trace(artifacts, duration_ms=ms)
+                return 200, {"status": "ok", "artifact": path, "duration_ms": ms}
+            _, path = _device.capture_async(artifacts, duration_ms=ms)
+        except _device.CaptureBusy as exc:
+            return 409, {"status": "error", "error": str(exc)}
+        return 202, {"status": "accepted", "artifact": path, "duration_ms": ms}
+
+    def _admin_reload(self, params: dict) -> Tuple[int, dict]:
+        """POST /admin/reload — force an immediate reload-plane poll: 202 +
+        the reload state by default, ``block=1`` waits for the triggered
+        cycle and answers 200 with its outcome, 409 while a cycle is
+        running or when no reload plane is attached."""
+        if self.reloader is None:
+            return 409, {"status": "error",
+                         "error": "no reload plane attached (start the "
+                                  "server with --reload-store)"}
+        from gan_deeplearning4j_tpu_torch.deploy.reloader import ReloadBusy
+
+        block = params.get("block", ["0"])[0] not in ("0", "", "false")
+        try:
+            status = self.reloader.poll_now(wait=block)
+        except ReloadBusy as exc:
+            return 409, {"status": "error", "error": str(exc)}
+        if block:
+            return 200, {"status": "ok", "reload": status}
+        return 202, {"status": "accepted", "reload": status}
 
     def handle(self, method: str, path: str, payload: Optional[dict] = None,
                trace_id: Optional[str] = None) -> Tuple[int, dict]:
@@ -159,6 +231,13 @@ class InferenceService:
         if method == "GET" and path == "/debug/spans":
             return 200, TRACER.chrome_trace(
                 {"source": "gan_deeplearning4j_tpu_torch.serving"})
+        if method == "POST" and path == "/debug/trace":
+            return self._debug_trace(params)
+        if method == "POST" and path == "/admin/reload":
+            return self._admin_reload(params)
+        if method == "POST" and path == "/admin/drain":
+            self.draining = params.get("off", ["0"])[0] in ("0", "", "false")
+            return 200, {"status": "ok", "draining": self.draining}
         if method == "POST" and path.startswith("/v1/"):
             kind = path[len("/v1/"):]
             engine = self.engine  # one snapshot for the whole request

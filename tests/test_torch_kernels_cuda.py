@@ -205,3 +205,115 @@ def test_a_captured_window_equals_the_eager_body_and_captures_each_key_once(card
             counts = dict(captured.graphs.capture_counts)
             assert counts and set(counts.values()) == {1}
     assert captured.graphs.capture_counts == counts
+
+
+# -- serving: one captured graph per (kind, bucket) ----------------------------------
+
+def _serving_engine(precision, warm=True):
+    """The full-width DCGAN-MNIST ``gen`` and ``cv`` (seed 666) served on the
+    card; ``precision="int8"`` quantizes the classifier's dense layers
+    (``quant_dense`` inside the graphs), calibrated on seeded rows."""
+    from gan_deeplearning4j_tpu_torch.models import dcgan_mnist
+    from gan_deeplearning4j_tpu_torch.quant.variants import quantize_classifier
+    from gan_deeplearning4j_tpu_torch.serving import ServingEngine
+
+    gen, dis = dcgan_mnist.build_generator(), dcgan_mnist.build_discriminator()
+    cv, cv_params = dcgan_mnist.build_transfer_classifier(dis, dis.init(seed=666, device="cpu"))
+    if precision == "int8":
+        rows = torch.from_numpy(np.random.default_rng(1).random((64, 784), dtype=np.float32))
+        cv, cv_params, _ = quantize_classifier(cv, cv_params, rows)
+    engine = ServingEngine({"generator": (gen, gen.init(seed=666, device="cpu")), "classifier": (cv, cv_params)},
+                           feature_vertex="dis_dense_layer_6", precision=precision, device="cuda",
+                           export_gauge=False)
+    if warm:
+        engine.warmup()
+    return engine
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", [None, "int8"])
+def test_concurrent_dispatch_replays_bit_equal_to_run_host(card, precision):
+    """8 threads dispatch and finalize at once, every kind and n in 1-130
+    (130 spans two chunks): every answer equals ``run_host`` (the eager
+    forward on the default stream) bit for bit, and nothing is captured
+    after warmup. The H2D, replay and D2H of one flight are enqueued under
+    the engine's lock; a flight that read another's rows would show."""
+    import threading
+
+    engine = _serving_engine(precision)
+    assert engine.compile_counts == {k: len(engine.buckets) for k in engine.kinds}
+    rng = np.random.default_rng(5)
+    cases = []
+    for i in range(48):
+        kind = engine.kinds[i % 3]
+        n = (1, 3, 8, 21, 130, 32)[i % 6]
+        rows = rng.random((n, engine.input_width(kind)), dtype=np.float32)
+        if kind == "sample":
+            rows = rows * 4.0 - 2.0
+        cases.append((kind, rows, engine.run_host(kind, rows)))
+    before = engine.kernel_launches().get("quant_dense", 0)
+    errors, barrier = [], threading.Barrier(8)
+
+    def worker(t):
+        barrier.wait(timeout=60)
+        for kind, rows, want in cases[t::8] * 3:
+            got = engine.finalize(engine.dispatch(kind, [rows]))
+            if not np.array_equal(got, want):
+                errors.append((kind, rows.shape[0]))
+
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads) and not errors, errors[:5]
+    assert engine.serve_compile_counts == {k: 0 for k in engine.kinds}
+    if precision == "int8":
+        # replays launch quant_dense where no wrapper call counts it: two
+        # quantized layers per classifier graph
+        launched = engine.kernel_launches()["quant_dense"] - before
+        chunks = sum(3 * -(-rows.shape[0] // 128) for kind, rows, _ in cases if kind != "sample")
+        assert launched == 2 * chunks
+        assert {g["launches_per_replay"].get("quant_dense", 0)
+                for key, g in engine.graph_stats().items() if not key.startswith("sample")} == {2}
+
+
+@pytest.mark.cuda
+def test_a_capture_during_background_warmup_while_run_host_runs(card):
+    """A background warmup captures every (kind, bucket) while another
+    thread runs ``run_host`` (eager, default stream) and a second engine
+    replays: captures run in ``"thread_local"`` mode under the process-wide
+    lock, so the other threads' work neither enters nor breaks them."""
+    import threading
+
+    serving = _serving_engine(None)
+    engine = _serving_engine(None, warm=False)
+    rows = np.random.default_rng(2).random((21, 784), dtype=np.float32)
+    want = serving.run_host("classify", rows)
+    stop, errors = threading.Event(), []
+
+    def busy():
+        while not stop.is_set():
+            if not np.array_equal(engine.run_host("classify", rows), want):
+                errors.append("run_host")
+            if not np.array_equal(serving.run("classify", rows), want):
+                errors.append("replay")
+
+    t = threading.Thread(target=busy)
+    t.start()
+    try:
+        engine.warmup(background=True)
+        assert engine.wait_warm(timeout=300)
+    finally:
+        stop.set()
+        t.join(timeout=120)
+    assert not t.is_alive() and not errors and not engine.warm_failed
+    assert engine.compile_counts == {k: len(engine.buckets) for k in engine.kinds}
+    for kind in engine.kinds:
+        x = np.random.default_rng(3).random((130, engine.input_width(kind)), dtype=np.float32)
+        assert np.array_equal(engine.run(kind, x), engine.run_host(kind, x))
+    assert engine.serve_compile_counts == {k: 0 for k in engine.kinds}
+    stats = engine.stats()
+    assert stats["captured"] and stats["graph_pool_bytes"] > 0
+    engine.close()
+    assert engine.graph_stats() == {}

@@ -350,6 +350,20 @@ def test_importing_the_port_loads_no_jax():
         "import gan_deeplearning4j_tpu_torch.eval.fid\n"
         "import gan_deeplearning4j_tpu_torch.eval.quality\n"
         "import gan_deeplearning4j_tpu_torch.ops._native\n"
+        "import gan_deeplearning4j_tpu_torch.serving.mux\n"
+        "import gan_deeplearning4j_tpu_torch.serving.mux.splitter\n"
+        "import gan_deeplearning4j_tpu_torch.serving.mux.registry\n"
+        "import gan_deeplearning4j_tpu_torch.serving.mux.ramp\n"
+        "import gan_deeplearning4j_tpu_torch.serving.mux.service\n"
+        "import gan_deeplearning4j_tpu_torch.serving.ladder\n"
+        "import gan_deeplearning4j_tpu_torch.deploy.watcher\n"
+        "import gan_deeplearning4j_tpu_torch.deploy.reloader\n"
+        "import gan_deeplearning4j_tpu_torch.deploy.__main__\n"
+        "import gan_deeplearning4j_tpu_torch.resilience\n"
+        "import gan_deeplearning4j_tpu_torch.resilience.store\n"
+        "import gan_deeplearning4j_tpu_torch.telemetry.slo\n"
+        "import gan_deeplearning4j_tpu_torch.telemetry.device\n"
+        "import gan_deeplearning4j_tpu_torch.runtime.capture\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'gan_deeplearning4j_tpu' or m.startswith('gan_deeplearning4j_tpu.')]\n"
         "assert not bad, bad\n"
