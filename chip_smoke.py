@@ -107,8 +107,8 @@ q. uncaptured (the device body launched op by op) against captured, back
    mixed bf16: the first two iterations' seconds (warmup and capture
    included), host and CUDA-event ms, rows/s, busy share, kernels and
    launch calls (kernel launches, graph launches, copies) per iteration,
-   peak memory and each entry's private pool, and a window of 16 over one
-   resident batch.
+   peak memory and each entry's private pool, and (captured) a window of
+   16 over one resident batch.
 
 Then int8 (``quant/``), the port's one hand-written kernel first: before
 any phase, ``gan_deeplearning4j_tpu_torch/csrc/quant_dense.cu`` is built
@@ -168,10 +168,31 @@ t. reload on the card: a ``CheckpointStore``, ``ReloadController`` with the
    generation quarantined; ``POST /debug/trace?ms=200&block=1`` leaving a
    ``torch.profiler`` trace.
 
+Then the model zoo (``zoo/``) and class conditioning:
+
+u. (u1) the conditional MNIST DCGAN (``ExperimentConfig``'s defaults, z 2
+   plus a 10-wide one-hot) card vs CPU at batch 64, within (a)'s limits;
+   (u2) (p)'s window check on the conditional MNIST DCGAN at batch 200 and
+   the conditional image family (``cifar_shaped``) at 64, the one-hot read
+   from the window's static labels; (u3) the port's zoo drill
+   (``gan_deeplearning4j_tpu_torch.zoo.drill``) at full width: conditional
+   MNIST at batch 200 through ``StreamingDataSetIterator``, published,
+   every class served over HTTP by ``sample?class=k`` bit-equal to
+   ``run_host``, no capture after warmup, the 400 contract; WGAN-GP
+   ``cifar_shaped`` at 320, one round; both behind one mux with the
+   conditional bundle's int8 variant, under ``sample`` and ``classify``
+   requests (the kernel's launch count zeroed before, read after; its
+   replays in the int8 variant's graphs must be some), every answer ok; the int8 variant's replays
+   bit-equal to ``quant_dense_plain`` and its ``sample?class=k`` to
+   ``run_host``; (u4) timing, recorded: the captured iteration conditional
+   against unconditional at batch 200, the streaming iterator against the
+   in-memory one (feeding alone and feeding training), conditional
+   ``sample`` ``run`` ms against the unconditional bundle's, buckets 1-128.
+
 Every number is printed beside the card's name and power limit. The
 ``kernels`` line lists ``quant_dense`` (the JAX package has no Pallas
 kernel; its XLA-lowered ``quant_dense`` is the one op stock torch cannot
-fuse) with its launches on this slice's main path, (s), and by path. The
+fuse) with its launches on this slice's main path, (u), and by path. The
 last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 ``--json PATH`` also writes every measurement to PATH.
@@ -417,12 +438,30 @@ def _split_errors(a: dict, b: dict) -> dict:
     return out
 
 
-def _phase_card_vs_cpu(x, y, card: str) -> list:
+def _frozen_updater_keys(exp, flat: dict) -> list:
+    """``flatten_states`` keys of the classifier's updater state in its
+    frozen (learning rate 0) layers: state that moves no param."""
+    frozen = [layer for layer, u in exp.cv.layer_updaters().items() if u.learning_rate == 0]
+    return [k for k in flat if any(k.startswith(f"CV/opt_state/{layer}/") for layer in frozen)]
+
+
+def _phase_card_vs_cpu(x, y, card: str, frozen_apart: bool = False, **overrides) -> list:
+    """(a), and (u1) with ``conditioning="class"``: 2 iterations at batch 64
+    on the card and on the CPU from one init and one stream of draws.
+
+    ``frozen_apart`` ((u1)) holds the classifier's updater state in its
+    frozen layers apart from ``max_leaf_rel``: at learning rate 0 it moves
+    no param, and its value (the square of a gradient through the frozen
+    feature stack, ending in a 50,176-term cancelling sum at the first
+    BatchNorm) is not fixed by fp32: two CPU runs of the same iteration with
+    1 and 4 threads differ there by 1.3e-2 at (u1)'s batch, the card vs the
+    CPU by as much. Those leaves are reported (their worst relative error,
+    and the CPU's own spread on them, measured here with one thread)."""
     from gan_deeplearning4j_tpu_torch.harness import GanExperiment
     from gan_deeplearning4j_tpu_torch.harness.experiment import flatten_states, state_divergence
 
-    gpu = GanExperiment(_config(batch_size_train=64))
-    cpu = GanExperiment(_config(batch_size_train=64, use_accelerator=False))
+    gpu = GanExperiment(_config(batch_size_train=64, **overrides))
+    cpu = GanExperiment(_config(batch_size_train=64, use_accelerator=False, **overrides))
     rows = []
     for it in range(2):
         xb, yb = x[it * 64:(it + 1) * 64], y[it * 64:(it + 1) * 64]
@@ -430,15 +469,40 @@ def _phase_card_vs_cpu(x, y, card: str) -> list:
         loss_rel = max(abs(float(lg[k]) - float(lc[k])) / abs(float(lc[k])) for k in lc)
         loss_abs = max(abs(float(lg[k]) - float(lc[k])) for k in lc)
         a, b = flatten_states(gpu.digest_states()), flatten_states(cpu.digest_states())
-        div = state_divergence(a, b)
-        row = {"phase": "train_card_vs_cpu", "iteration": it + 1, "batch": 64,
+        apart = _frozen_updater_keys(cpu, b) if frozen_apart else []
+        div = state_divergence(a, b, apart)
+        row = {"phase": "train_card_vs_cpu", **overrides, "iteration": it + 1, "batch": 64,
                "losses_max_abs_err": loss_abs, "losses_max_rel_err": loss_rel,
                **{f"{k}_max_abs_err": v for k, v in _split_errors(a, b).items()},
-               "max_leaf_rel_err": div["max_leaf_rel"], "card": card}
+               "max_leaf_rel_err": div["max_leaf_rel"], **_leaf_errors(a, b, apart), "card": card}
+        if apart:
+            row["frozen_updater_state"] = {
+                "leaves": len(apart),
+                "max_leaf_rel_err": state_divergence({k: a[k] for k in apart}, {k: b[k] for k in apart})
+                ["max_leaf_rel"]}
         print(json.dumps(row))
         rows.append(row)
         if it == 0 and (loss_rel > ITER_LOSS_RTOL or div["max_leaf_rel"] > ITER_LEAF_REL):
             raise AssertionError(f"card vs CPU after one iteration: {row}")
+    if frozen_apart:
+        # the CPU's own spread on those leaves: the first iteration again,
+        # on one thread
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            one = GanExperiment(_config(batch_size_train=64, use_accelerator=False, **overrides))
+            one.train_iteration(x[:64], y[:64])
+        finally:
+            torch.set_num_threads(threads)
+        ref = GanExperiment(_config(batch_size_train=64, use_accelerator=False, **overrides))
+        ref.train_iteration(x[:64], y[:64])
+        c, d = flatten_states(one.digest_states()), flatten_states(ref.digest_states())
+        apart = _frozen_updater_keys(ref, d)
+        rows[0]["frozen_updater_state"]["cpu_1_vs_%d_threads_max_leaf_rel" % threads] = state_divergence(
+            {k: c[k] for k in apart}, {k: d[k] for k in apart})["max_leaf_rel"]
+        rows[0]["cpu_1_vs_%d_threads_max_leaf_rel_rest" % threads] = state_divergence(c, d, apart)["max_leaf_rel"]
+        print(json.dumps({"phase": "train_card_vs_cpu_cpu_spread", **overrides,
+                          "frozen_updater_state": rows[0]["frozen_updater_state"], "card": card}))
     return rows
 
 
@@ -1084,7 +1148,7 @@ def _eager_body(exp, feats, labels) -> np.ndarray:
     for k in range(feats.shape[0]):
         inputs = {"features": torch.from_numpy(feats[k]).to(exp.device),
                   "draws": exp._window_draws(1, feats.shape[1])[0]}
-        if exp.cv is not None:
+        if exp.cv is not None or exp._cond_classes:
             inputs["labels"] = torch.from_numpy(labels[k]).to(exp.device)
         trees, row = exp._body(exp._trees(), inputs)
         exp._set_trees(trees)
@@ -1107,6 +1171,65 @@ def _history(result) -> np.ndarray:
                     dtype=np.float32)
 
 
+def _window_case(name: str, batch: int, dtypes: dict, x, y, directory: str, card: str):
+    """One case of (p): 9 iterations from one init and one stream of draws,
+    four ways (the eager body; ``train_iteration`` + ``train_iterations``
+    over 8; ``run(DeviceResidentIterator)``; ``run()`` with ``prefetch=2``):
+    ``(row, ok)``. ``dtypes`` are the case's config overrides."""
+    from gan_deeplearning4j_tpu_torch.data import ArrayDataSetIterator, DeviceResidentIterator
+
+    n_it = WINDOW_K + 1
+    eager = _experiment_for(name, batch, **dtypes)
+    feats, labels = _stacked_batches(eager, name, x, y, n_it, batch)
+    want = _eager_body(eager, feats, labels)
+    window = _experiment_for(name, batch, **dtypes)
+    first = window.train_iteration(feats[0], labels[0])
+    rest = window.train_iterations(feats[1:], labels[1:])
+    got_window = np.concatenate([
+        torch.stack([first[k] for k in ("d_loss", "g_loss", "cv_loss")])[None].cpu().numpy(),
+        torch.stack([rest[k] for k in ("d_loss", "g_loss", "cv_loss")], dim=1).cpu().numpy()])
+    flat_x, flat_y = feats.reshape(n_it * batch, -1), labels.reshape(n_it * batch, -1)
+    runs = {}
+    for mode in ("resident", "prefetch"):
+        exp = _experiment_for(name, batch, num_iterations=n_it, loss_fetch_every=WINDOW_K,
+                              print_every=1000, prefetch=2 if mode == "prefetch" else 0,
+                              output_dir=f"{directory}_{mode}", **dtypes)
+        it = (DeviceResidentIterator(flat_x, flat_y, batch_size=batch, device=exp.device)
+              if mode == "resident" else ArrayDataSetIterator(flat_x, flat_y, batch_size=batch))
+        runs[mode] = (exp, _history(exp.run(it)))
+    counts = dict(window.graphs.capture_counts)
+    window.train_iterations(feats[1:], labels[1:])  # a second window: no capture
+    checks = {
+        "train_iterations_losses_equal": bool(np.array_equal(got_window, want, equal_nan=True)),
+        "run_resident_losses_equal": bool(np.array_equal(runs["resident"][1], want, equal_nan=True)),
+        "run_prefetch_history_equal": bool(np.array_equal(runs["prefetch"][1], runs["resident"][1],
+                                                          equal_nan=True)),
+        "run_resident_leaves_differing": _differing_leaves(runs["resident"][0], eager)[:5],
+        "run_prefetch_leaves_differing": _differing_leaves(runs["prefetch"][0], eager)[:5],
+        "captures": {m: dict(e.graphs.capture_counts) for m, e in
+                     (("train_iterations", window), ("run_resident", runs["resident"][0]),
+                      ("run_prefetch", runs["prefetch"][0]))},
+        "second_window_captured": window.graphs.capture_counts != counts,
+    }
+    # the second window: 8 more eager iterations, then every leaf
+    eager_more = _eager_body(eager, feats[1:], labels[1:])
+    checks["train_iterations_leaves_differing"] = _differing_leaves(window, eager)[:5]
+    row = {"phase": "windows", "family": name, "batch": batch, **dtypes, "iterations": n_it,
+           "window": WINDOW_K, **checks,
+           "entries": window.graphs.entry_stats(), "card": card}
+    print(json.dumps(row))
+    ok = (checks["train_iterations_losses_equal"] and checks["run_resident_losses_equal"]
+          and checks["run_prefetch_history_equal"] and not checks["run_resident_leaves_differing"]
+          and not checks["run_prefetch_leaves_differing"]
+          and not checks["train_iterations_leaves_differing"] and not checks["second_window_captured"]
+          and all(c and set(c.values()) == {1} for c in checks["captures"].values())
+          and np.isfinite(eager_more[:, :2]).all())
+    del eager, window, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, ok
+
+
 def _phase_windows(x, y, directory: str, card: str) -> list:
     """(p) Captured windows against the eager body, bit for bit. For each
     of ``WINDOW_CASES``, from one init and one stream of draws, 9
@@ -1120,62 +1243,14 @@ def _phase_windows(x, y, directory: str, card: str) -> list:
     Then the ragged tail: tabular b256 over 640 rows for two epochs, whose
     128-row batch is captured once and replayed, against the eager body on
     the same batches."""
-    from gan_deeplearning4j_tpu_torch.data import ArrayDataSetIterator, DeviceResidentIterator
+    from gan_deeplearning4j_tpu_torch.data import DeviceResidentIterator
 
     rows, failed = [], []
     for i, (name, batch, dtypes) in enumerate(WINDOW_CASES):
-        n_it = WINDOW_K + 1
-        eager = _experiment_for(name, batch, **dtypes)
-        feats, labels = _stacked_batches(eager, name, x, y, n_it, batch)
-        want = _eager_body(eager, feats, labels)
-        window = _experiment_for(name, batch, **dtypes)
-        first = window.train_iteration(feats[0], labels[0])
-        rest = window.train_iterations(feats[1:], labels[1:])
-        got_window = np.concatenate([
-            torch.stack([first[k] for k in ("d_loss", "g_loss", "cv_loss")])[None].cpu().numpy(),
-            torch.stack([rest[k] for k in ("d_loss", "g_loss", "cv_loss")], dim=1).cpu().numpy()])
-        flat_x, flat_y = feats.reshape(n_it * batch, -1), labels.reshape(n_it * batch, -1)
-        runs = {}
-        for mode in ("resident", "prefetch"):
-            exp = _experiment_for(name, batch, num_iterations=n_it, loss_fetch_every=WINDOW_K,
-                                  print_every=1000, prefetch=2 if mode == "prefetch" else 0,
-                                  output_dir=os.path.join(directory, f"windows_{i}_{mode}"), **dtypes)
-            it = (DeviceResidentIterator(flat_x, flat_y, batch_size=batch, device=exp.device)
-                  if mode == "resident" else ArrayDataSetIterator(flat_x, flat_y, batch_size=batch))
-            runs[mode] = (exp, _history(exp.run(it)))
-        counts = dict(window.graphs.capture_counts)
-        window.train_iterations(feats[1:], labels[1:])  # a second window: no capture
-        checks = {
-            "train_iterations_losses_equal": bool(np.array_equal(got_window, want, equal_nan=True)),
-            "run_resident_losses_equal": bool(np.array_equal(runs["resident"][1], want, equal_nan=True)),
-            "run_prefetch_history_equal": bool(np.array_equal(runs["prefetch"][1], runs["resident"][1],
-                                                              equal_nan=True)),
-            "run_resident_leaves_differing": _differing_leaves(runs["resident"][0], eager)[:5],
-            "run_prefetch_leaves_differing": _differing_leaves(runs["prefetch"][0], eager)[:5],
-            "captures": {m: dict(e.graphs.capture_counts) for m, e in
-                         (("train_iterations", window), ("run_resident", runs["resident"][0]),
-                          ("run_prefetch", runs["prefetch"][0]))},
-            "second_window_captured": window.graphs.capture_counts != counts,
-        }
-        # the second window: 8 more eager iterations, then every leaf
-        eager_more = _eager_body(eager, feats[1:], labels[1:])
-        checks["train_iterations_leaves_differing"] = _differing_leaves(window, eager)[:5]
-        row = {"phase": "windows", "family": name, "batch": batch, **dtypes, "iterations": n_it,
-               "window": WINDOW_K, **checks,
-               "entries": window.graphs.entry_stats(), "card": card}
-        print(json.dumps(row))
+        row, ok = _window_case(name, batch, dtypes, x, y, os.path.join(directory, f"windows_{i}"), card)
         rows.append(row)
-        ok = (checks["train_iterations_losses_equal"] and checks["run_resident_losses_equal"]
-              and checks["run_prefetch_history_equal"] and not checks["run_resident_leaves_differing"]
-              and not checks["run_prefetch_leaves_differing"]
-              and not checks["train_iterations_leaves_differing"] and not checks["second_window_captured"]
-              and all(c and set(c.values()) == {1} for c in checks["captures"].values())
-              and np.isfinite(eager_more[:, :2]).all())
         if not ok:
             failed.append(f"{name} {dtypes}")
-        del eager, window, runs
-        gc.collect()
-        torch.cuda.empty_cache()
 
     # the ragged last batch of an epoch: 640 rows at 256, two epochs
     batch, n_rows = 256, 640
@@ -1306,8 +1381,8 @@ def _phase_capture_timing(x, y, card: str) -> list:
     (for captured: warmup and capture of the init and steady entries),
     host and CUDA-event ms, rows/s, busy share, kernels per iteration,
     launch calls per iteration, peak memory, each entry's private pool,
-    a window of 16 over one resident batch (timed, then profiled), and for
-    captured calls the host time split into draws, runner and graph
+    and for captured calls a window of 16 over one resident batch (timed,
+    then profiled) and the host time split into draws, runner and graph
     launch."""
     rows = []
     for dtype in ("fp32", "bf16"):
@@ -1340,7 +1415,9 @@ def _phase_capture_timing(x, y, card: str) -> list:
                     "launch_calls_per_iteration": calls,
                     "launch_calls_total_per_iteration": sum(calls.values()),
                     "graph_launches_per_iteration": graph_launches,
-                    "resident_window": _resident_window_ms(exp, *batches[0]),
+                    # uncaptured, the window is the same eager iterations
+                    # again: only the captured one is timed
+                    "resident_window": _resident_window_ms(exp, *batches[0]) if exp.graphs.captured else None,
                     "captures": dict(exp.graphs.capture_counts),
                     "entries": exp.graphs.entry_stats(),
                 }
@@ -2366,6 +2443,234 @@ def _phase_reload(fp32_dir: str, directory: str, card: str) -> dict:
         thread.join(timeout=30)
 
 
+# -- the model zoo: class conditioning, streaming input, the drill -----------
+
+#: (u2): the conditional MNIST DCGAN at (d)'s batch and the conditional image
+#: family (``cifar_shaped``) at (e)'s
+ZOO_WINDOW_CASES = (("mnist", 200, {"conditioning": "class"}),
+                    ("cifar10", 64, {"conditioning": "class"}))
+#: (u4): the batch, rows the iterators feed, iterations timed through ``run()``
+ZOO_BATCH, ZOO_STREAM_ROWS, ZOO_STREAM_ITERATIONS = 200, 8000, 32
+
+
+def _zoo_windows(x, y, directory: str, card: str) -> list:
+    """(u2) (p)'s check on ``ZOO_WINDOW_CASES``: the conditional iteration
+    captured, its one-hot read from the window's static labels, bit-equal
+    to the eager body in every leaf and loss, each key captured once."""
+    rows, failed = [], []
+    for i, (name, batch, overrides) in enumerate(ZOO_WINDOW_CASES):
+        row, ok = _window_case(name, batch, overrides, x, y, os.path.join(directory, f"zoo_windows_{i}"),
+                               card)
+        rows.append(row)
+        if not ok:
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"(u2) conditional captured windows differ from the eager body: {failed}")
+    return rows
+
+
+def _zoo_drill(directory: str, card: str) -> dict:
+    """(u3) The port's zoo drill at full width on the card: the conditional
+    MNIST DCGAN (z 2 + a 10-wide one-hot) trained at batch 200 through
+    ``StreamingDataSetIterator``, published and served over HTTP, every
+    class bit-equal to ``run_host``, no capture after warmup, the 400
+    contract; WGAN-GP ``cifar_shaped`` at batch 320, one round; both behind
+    one mux with the conditional bundle's int8 variant (its ``classify``
+    requests replay ``quant_dense``), every answer ok. The kernel's launch
+    count is zeroed before the drill and read after it (captures and eager
+    calls, plus the mux's int8 replays, which must be some). Then the int8
+    variant apart: its ``classify`` / ``features`` replays bit-equal to the
+    same forward with ``quant_dense_plain``, and ``sample?class=k`` served
+    for every class bit-equal to ``run_host`` (the variant inherits the zoo
+    block)."""
+    from gan_deeplearning4j_tpu_torch.ops import linear
+    from gan_deeplearning4j_tpu_torch.serving import InferenceService, ServingEngine
+    from gan_deeplearning4j_tpu_torch.zoo import drill
+
+    workdir = os.path.join(directory, "zoo_drill")
+    args = drill.parse_args(["--iterations", "2", "--batch-size", "200", "--wgan-batch-size", "320",
+                             "--buckets", "1,8,32,128", "--mux-requests", "96", "--device", "cuda",
+                             "--workdir", workdir])
+    linear.KERNEL_LAUNCHES["quant_dense"] = 0
+    payload = drill.run_drill(args)
+    replayed = payload["results"]["mux"]["kernel_launches"]["cond_mnist_int8"].get("quant_dense", 0)
+    launches = linear.KERNEL_LAUNCHES["quant_dense"] + replayed
+
+    engine = ServingEngine.from_bundle(os.path.join(workdir, "bundle_cond_mnist_int8"), device="cuda",
+                                       export_gauge=False)
+    engine.warmup()
+    rng = np.random.default_rng(SEED)
+    vs_plain = {}
+    for kind in ("classify", "features"):
+        for n in SIZES:
+            rows = _rows(kind, n, rng)
+            staged = engine.run(kind, rows)
+            with _plain_quant_dense():
+                plain = engine.run_host(kind, rows)
+            vs_plain[kind] = max(vs_plain.get(kind, 0.0), float(np.max(np.abs(staged - plain))))
+    service = InferenceService(engine, warmup=False)
+    int8_classes = []
+    try:
+        for k in range(engine.class_count):
+            z = rng.random((3, engine.latent_width("sample")), dtype=np.float32) * 2.0 - 1.0
+            status, body = service.handle("POST", f"/v1/sample?class={k}", {"data": z.tolist()})
+            onehot = np.zeros((3, engine.class_count), dtype=np.float32)
+            onehot[:, k] = 1.0
+            int8_classes.append(status == 200 and np.array_equal(
+                np.asarray(body["data"], dtype=np.float32),
+                engine.run_host("sample", np.concatenate([z, onehot], axis=1))))
+    finally:
+        service.close()
+    serve = dict(engine.serve_compile_counts)
+    engine.close()
+    row = {"phase": "zoo_drill", "ok": payload["ok"], "invariants": payload["invariants"],
+           "config": payload["config"], "wall_seconds": payload["wall_seconds"],
+           "results": payload["results"], "kernel_launches": launches,
+           "kernel_launches_replayed_in_the_mux": replayed,
+           "int8_replay_vs_plain_quant_dense_max_abs_err": vs_plain,
+           "int8_sample_class_parity": int8_classes, "int8_serve_compile_counts": serve, "card": card}
+    print(json.dumps(row))
+    if not (payload["ok"] and replayed > 0 and not any(vs_plain.values()) and all(int8_classes)
+            and len(int8_classes) == 10 and not any(serve.values())):
+        raise AssertionError(f"(u3) the zoo drill failed: {row}")
+    return row
+
+
+def _zoo_stream_iterator(kind: str, xs, ys):
+    from gan_deeplearning4j_tpu_torch.data import ArrayDataSetIterator
+    from gan_deeplearning4j_tpu_torch.zoo import StreamingDataSetIterator, array_source
+
+    if kind == "streaming":
+        source, n = array_source(xs, ys)
+        return StreamingDataSetIterator(source, n, batch_size=ZOO_BATCH, shuffle=True, seed=SEED,
+                                        device="cuda")
+    return ArrayDataSetIterator(xs, ys, batch_size=ZOO_BATCH, shuffle=True, seed=SEED)
+
+
+def _zoo_feed_rows_per_s(kind: str, xs, ys) -> float:
+    """Rows a second one epoch of the iterator puts on the card at
+    ``ZOO_BATCH`` (the in-memory iterator's batches copied as ``run()`` copies them)."""
+    it = _zoo_stream_iterator(kind, xs, ys)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = 0
+    while it.has_next():
+        batch = it.next()
+        if kind != "streaming":
+            batch = batch.to_device("cuda")
+        rows += batch.num_examples()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    if kind == "streaming":
+        it.close()
+    return rows / elapsed
+
+
+def _zoo_train_rows_per_s(kind: str, xs, ys, directory: str) -> float:
+    """Rows a second of conditional training at ``ZOO_BATCH`` through ``run()``
+    fed by the iterator: 8 iterations first (captures), then
+    ``ZOO_STREAM_ITERATIONS`` timed, ended by the loss read-back."""
+    from gan_deeplearning4j_tpu_torch.harness import GanExperiment
+
+    exp = GanExperiment(_config(conditioning="class", batch_size_train=ZOO_BATCH, num_iterations=8,
+                                print_every=1000,
+                                output_dir=os.path.join(directory, f"zoo_stream_{kind}")))
+    it = _zoo_stream_iterator(kind, xs, ys)
+    exp.run(it)
+    exp.config.num_iterations = 8 + ZOO_STREAM_ITERATIONS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = exp.run(it)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    if kind == "streaming":
+        it.close()
+    if result["iterations"] != 8 + ZOO_STREAM_ITERATIONS:
+        raise AssertionError(f"(u4) {kind}: run() stopped at {result['iterations']}")
+    return ZOO_STREAM_ITERATIONS * ZOO_BATCH / elapsed
+
+
+def _zoo_timing(x, y, directory: str, card: str) -> dict:
+    """(u4) Recorded, not gated; each pair in turns (A, B, B, A) in this
+    call. The captured iteration of conditional and unconditional MNIST at
+    batch 200 (``_measure_iterations``: host and event ms, rows/s, busy
+    share); the streaming iterator against the in-memory one, feeding alone
+    and feeding conditional training through ``run()`` (rows/s); ``run`` ms
+    captured of conditional ``sample`` (the drill's bundle, full-width
+    rows) against the unconditional fp32 bundle, buckets 1, 8, 32, 128."""
+    from gan_deeplearning4j_tpu_torch.harness import GanExperiment
+    from gan_deeplearning4j_tpu_torch.serving import ServingEngine
+    from gan_deeplearning4j_tpu_torch.zoo import load_dataset
+
+    batches = _mnist_batches(x, y, ZOO_BATCH, 30)
+    iterations = {"unconditional": [], "conditional": []}
+    for mode in ("unconditional", "conditional", "conditional", "unconditional"):
+        cond = {"conditioning": "class"} if mode == "conditional" else {}
+        exp = GanExperiment(_config(batch_size_train=ZOO_BATCH, **cond))
+        measured = _measure_iterations(exp, batches, ZOO_BATCH, top_n=3)
+        iterations[mode].append({k: measured[k] for k in (
+            "iteration_ms_host_median", "iteration_ms_event_median", "rows_per_s", "device_busy_share",
+            "kernels_per_iteration", "peak_memory_mib")})
+        del exp
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    (xs, labels), _ = load_dataset("mnist", num_train=ZOO_STREAM_ROWS, num_test=1, seed=SEED)
+    ys = np.eye(10, dtype=np.float32)[labels]
+    feed = {"in_memory": [], "streaming": []}
+    train = {"in_memory": [], "streaming": []}
+    for kind in ("in_memory", "streaming", "streaming", "in_memory"):
+        feed[kind].append(_zoo_feed_rows_per_s(kind, xs, ys))
+        train[kind].append(_zoo_train_rows_per_s(kind, xs, ys, directory))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    engines = {"unconditional": ServingEngine.from_bundle(directory, device="cuda", export_gauge=False),
+               "conditional": ServingEngine.from_bundle(os.path.join(directory, "zoo_drill", "bundle_cond_mnist"),
+                                                        device="cuda", export_gauge=False)}
+    for engine in engines.values():
+        engine.warmup()
+    rng = np.random.default_rng(SEED)
+    sample = {}
+    for bucket in engines["conditional"].buckets:
+        ms = {name: [] for name in engines}
+        for name in ("unconditional", "conditional", "conditional", "unconditional"):
+            engine = engines[name]
+            rows = rng.uniform(-1, 1, (bucket, engine.input_width("sample"))).astype(np.float32)
+            _host_ms(engine, "sample", rows, 3)
+            ms[name] += _host_ms(engine, "sample", rows, SERVE_TIMED // 2)
+        sample[bucket] = {name: statistics.median(v) for name, v in ms.items()}
+    captures = {name: (e.compile_counts, e.serve_compile_counts) for name, e in engines.items()}
+    for engine in engines.values():
+        engine.close()
+    row = {"phase": "zoo_timing", "batch": ZOO_BATCH, "iterations": iterations,
+           "feed_rows_per_s": feed, "train_rows_per_s": train,
+           "sample_run_ms_captured": sample, "serving_captures": captures, "card": card}
+    print(json.dumps(row))
+    return row
+
+
+def _phase_zoo(x, y, directory: str, card: str) -> dict:
+    """(u) The model zoo on the card: (u1) the conditional MNIST DCGAN card
+    vs CPU, (u2) its captured windows and the conditional image family's,
+    (u3) the zoo drill at full width with the int8 variant, (u4) timing.
+    Every part runs; any failure fails the phase."""
+    out, failed = {}, []
+    for key, run in (("card_vs_cpu", lambda: _phase_card_vs_cpu(x, y, card, frozen_apart=True,
+                                                                conditioning="class")),
+                     ("windows", lambda: _zoo_windows(x, y, directory, card)),
+                     ("drill", lambda: _zoo_drill(directory, card)),
+                     ("timing", lambda: _zoo_timing(x, y, directory, card))):
+        try:
+            out[key] = run()
+        except Exception:  # reported, and the phase fails below
+            traceback.print_exc()
+            failed.append(key)
+    if failed:
+        raise AssertionError(f"(u) zoo: {failed} failed")
+    return out
+
+
 def _post_path(base: str, path: str):
     req = urllib.request.Request(f"{base}{path}", data=b"{}", headers={"Content-Type": "application/json"})
     with urllib.request.urlopen(req, timeout=120) as r:
@@ -2384,6 +2689,7 @@ def main(argv=None) -> int:
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from gan_deeplearning4j_tpu_torch.serving import ServingEngine
 
+    t_start = time.perf_counter()
     card = _card()
     print(f"card: {card}")
     # the port's hand-written kernel, built from the checkout's source
@@ -2413,12 +2719,16 @@ def main(argv=None) -> int:
         http = _check_http(engine)
         ladder = _time_ladder(engine, models)
         x, y, make_train, make_test = _training_data(os.path.join(directory, "data"))
-        training = {
-            "card_vs_cpu": _phase_card_vs_cpu(x, y, card),
-            "resume": _phase_resume(x, y, os.path.join(directory, "ckpt"), card),
-            "run_publish": _phase_run_and_publish(make_train, make_test, directory, card),
-            "timing": _phase_timing(x, y, card),
-        }
+        seconds = {"serving": time.perf_counter() - t_start}
+        training = {}
+        for key, run in (("card_vs_cpu", lambda: _phase_card_vs_cpu(x, y, card)),
+                         ("resume", lambda: _phase_resume(x, y, os.path.join(directory, "ckpt"), card)),
+                         ("run_publish", lambda: _phase_run_and_publish(make_train, make_test, directory,
+                                                                        card)),
+                         ("timing", lambda: _phase_timing(x, y, card))):
+            t0 = time.perf_counter()
+            training[key] = run()
+            seconds[key] = time.perf_counter() - t0
         # the int8 variant of the serving bundle, for phases (m)-(o)
         from gan_deeplearning4j_tpu_torch.quant import build_int8_variant
 
@@ -2445,14 +2755,18 @@ def main(argv=None) -> int:
                          ("serving_captured",
                           lambda: _phase_serving_captured(directory, int8_dir, directory, card)),
                          ("mux", lambda: _phase_mux(directory, int8_dir, directory, card)),
-                         ("reload", lambda: _phase_reload(directory, directory, card))):
+                         ("reload", lambda: _phase_reload(directory, directory, card)),
+                         ("zoo", lambda: _phase_zoo(x, y, directory, card))):
+            t0 = time.perf_counter()
             try:
                 families[key] = run()
             except Exception:  # reported, and the run fails below
                 traceback.print_exc()
                 failed.append(key)
+            seconds[key] = time.perf_counter() - t0
     if failed:
-        print(f"chip_smoke: family / bf16 / window / int8 / serving phases failed: {failed}", file=sys.stderr)
+        print(f"chip_smoke: family / bf16 / window / int8 / serving / zoo phases failed: {failed}",
+              file=sys.stderr)
         return 1
     top = engine.buckets[-1]
     for row in ladder:
@@ -2462,11 +2776,14 @@ def main(argv=None) -> int:
                               "rows_per_s_run": top / row["run_ms"] * 1e3,
                               "rows_per_s_forward": top / row["forward_ms"] * 1e3, "card": card}))
     print(json.dumps({"phase": "http", **http, "warmup_s": warmup_s, "card": card}))
+    print(json.dumps({"phase": "phase_seconds", **seconds, "total": time.perf_counter() - t_start,
+                      "card": card}))
     if args.json:
         with open(args.json, "w") as fh:
             json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                        "parity": errs, "http": http, "warmup_s": warmup_s, "ladder": ladder,
-                       "training": training, "families": families, "kernel_build": build},
+                       "training": training, "families": families, "kernel_build": build,
+                       "phase_seconds": seconds},
                       fh, indent=2)
     quant = families["quant_kernel"]
     top = next(r for r in quant["shapes"] if r["layer"] == "dis_dense_layer_6" and r["n"] == 128)
@@ -2474,10 +2791,11 @@ def main(argv=None) -> int:
         "name": "quant_dense", "route": "cuda",
         "source": "gan_deeplearning4j_tpu_torch/csrc/quant_dense.cu",
         "replaces": "gan_deeplearning4j_tpu/ops/linear.py:34",
-        "launches": families["mux"]["kernel_launches"],
+        "launches": families["zoo"]["drill"]["kernel_launches"],
         "launches_by_path": {"int8_serve (n)": families["int8_serve"]["kernel_launches"],
                              "serving_captured (r)": families["serving_captured"]["kernel_launches"],
-                             "mux (s)": families["mux"]["kernel_launches"]},
+                             "mux (s)": families["mux"]["kernel_launches"],
+                             "zoo (u)": families["zoo"]["drill"]["kernel_launches"]},
         "max_abs_err": quant["max_abs_err"], "ms": top["kernel_ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"], "library_ms": top["library_ms"],
         "shape": "x (128, 1152) fp32 · W_q (1152, 1024) int8 (dis_dense_layer_6)",

@@ -6,7 +6,10 @@ for ``mnist`` (the one family with a transfer classifier) the prediction
 CSVs and the accuracy line. ``--model-family`` picks ``mnist``,
 ``tabular``, ``image`` (or ``cifar10`` / ``celeba64``) or ``wgan_gp``; the
 shape flags (``--height``, ``--width``, ``--channels``, ``--num-features``)
-must match the family's data.
+must match the family's data. ``--conditioning class`` trains a
+class-conditional generator (``mnist`` and ``image``) on the labelled
+rows, e.g. ``python -m gan_deeplearning4j_tpu_torch --conditioning class
+--num-iterations 10``.
 
 It runs on the card (``cuda:0``) and raises without CUDA unless
 ``--use-accelerator false`` asks for the CPU. Data: reference-format CSVs

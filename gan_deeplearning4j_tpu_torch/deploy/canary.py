@@ -18,9 +18,11 @@ incumbent's:
 
 A quantized variant is admitted the same way: the quantization loss must
 stay inside the same relative bars. The incumbent's probe is cached per
-(engine, generation). Conditional zoo bundles (a class one-hot beside z)
-wait for ROADMAP.md queue 1, 'Class conditioning', as the engine refuses
-them.
+(engine, generation). A conditional bundle is probed on base-z latents
+with a cycling one-hot block (``np.arange(n) % classes``), so every class
+is represented and the samples stay on the trained input manifold. A
+candidate whose zoo block names another dataset than the gate's real rows
+is rejected before any probe runs.
 """
 
 from __future__ import annotations
@@ -142,10 +144,23 @@ class CanaryGate:
         classify_fn = None
         if "classify" in engine.kinds and self.labels is not None:
             classify_fn = lambda rows: engine.run("classify", rows)  # noqa: E731
+        sample_fn = lambda z: engine.run("sample", z)  # noqa: E731
+        z_size = engine.input_width("sample")
+        if getattr(engine, "conditional", False):
+            # base-z latents and a cycling one-hot block, sliced to the
+            # chunk's rows: uniform noise in the one-hot slots would probe
+            # off the trained input manifold
+            classes = engine.class_count
+            z_size = engine.latent_width("sample")
+            onehot = np.eye(classes, dtype=np.float32)[np.arange(self.num_samples) % classes]
+
+            def sample_fn(z):
+                return engine.run("sample", np.concatenate([z, onehot[: z.shape[0]]], axis=1))
+
         return quality_probe(
-            lambda z: engine.run("sample", z),
+            sample_fn,
             self.features,
-            z_size=engine.input_width("sample"),
+            z_size=z_size,
             num_samples=self.num_samples,
             seed=self.seed,
             classify_fn=classify_fn,

@@ -3,11 +3,14 @@
 hyperparameter block as one typed config, field for field with the same
 defaults, overridable from JSON and argparse.
 
-``validate()`` makes the JAX package's checks (the WGAN-GP family's
-included) and also refuses, with ``NotImplementedError`` naming the
-ROADMAP.md item that brings it, what the port does not run yet:
-``distributed != "none"`` and ``update_sharding`` ('Parallel training')
-and ``conditioning="class"`` ('Class conditioning'). ``prefetch > 0``
+``validate()`` makes the JAX package's checks, in its order and with its
+messages (the WGAN-GP family's and class conditioning's included), and
+then refuses, with ``NotImplementedError`` naming the ROADMAP.md item that
+brings it, what the port does not run yet: ``distributed != "none"`` and
+``update_sharding`` ('Parallel training'). ``conditioning="class"`` widens
+the generator's input to ``[z | one-hot(class)]`` (``harness/
+experiment.py``); the discriminator and the classifier stay
+unconditional. ``prefetch > 0``
 makes ``run()`` keep that many batches ahead on the device
 (``DevicePrefetchIterator``).
 
@@ -70,7 +73,9 @@ class ExperimentConfig:
     resume: bool = False  # restore states from output_dir before training
 
     # -- model zoo scenario axes ---------------------------------------------
-    conditioning: str = "none"  # "none" | "class" (class is not ported yet)
+    # "none" | "class": a class-conditional generator takes [z | one-hot],
+    # trained on the real batch's labels; the discriminator stays unconditional
+    conditioning: str = "none"
     dataset: str = "mnist"  # the identity of the real rows, written to serving.json
 
     # -- WGAN-GP (ignored by the XENT families) -------------------------------
@@ -145,6 +150,18 @@ class ExperimentConfig:
                 f"unknown conditioning {self.conditioning!r} "
                 f"(want 'none' or 'class')"
             )
+        if self.conditioning == "class":
+            if self.num_classes < 2:
+                raise ValueError(
+                    "class-conditional training needs num_classes >= 2 "
+                    "(the one-hot label embedding is the condition)"
+                )
+            if self.distributed == "param_averaging":
+                raise ValueError(
+                    "conditioning='class' runs on the fused paths (single-"
+                    "chip or pmean); the param-averaging phased path keeps "
+                    "the reference's unconditional loop"
+                )
         parse_compute_dtype(self.compute_dtype)  # raises on an unknown dtype
         parse_compute_dtype(self.param_dtype)
         from gan_deeplearning4j_tpu_torch.models import registry
@@ -153,8 +170,10 @@ class ExperimentConfig:
         if family.name == "wgan_gp":
             if self.conditioning == "class":
                 raise ValueError(
-                    "conditioning='class' is a feature of the three-graph families; "
-                    "the WGAN-GP critic round is unconditional"
+                    "conditioning='class' is a GraphTrainer-family feature "
+                    "(the fused alternating loop concatenates the label "
+                    "embedding); the WGAN-GP critic-round program is "
+                    "unconditional — queued in ROADMAP.md"
                 )
             if self.n_critic < 1 or self.batch_size_train % self.n_critic:
                 raise ValueError(
@@ -163,23 +182,20 @@ class ExperimentConfig:
                 )
             if self.distributed == "param_averaging":
                 raise ValueError(
-                    "wgan_gp supports distributed='pmean'; k-step parameter "
-                    "averaging is a reference-parity mode for the XENT families"
+                    "wgan_gp supports distributed='pmean' (per-step sync over "
+                    "the mesh); k-step parameter averaging is a reference-"
+                    "parity mode for the XENT families"
                 )
             if self.update_sharding:
                 raise ValueError(
-                    "update_sharding is implemented for the GraphTrainer families; "
-                    "the WGAN-GP trainer keeps the replicated update"
+                    "update_sharding is implemented for the GraphTrainer "
+                    "families; the WGAN-GP trainer keeps the replicated "
+                    "update (its critic-round program is its own)"
                 )
         if self.distributed != "none" or self.update_sharding:
             raise NotImplementedError(
                 f"distributed={self.distributed!r} / update_sharding is not ported "
                 f"yet: ROADMAP.md queue 1, 'Parallel training'"
-            )
-        if self.conditioning == "class":
-            raise NotImplementedError(
-                "conditioning='class' is not ported yet: ROADMAP.md queue 1, "
-                "'Class conditioning'"
             )
         return self
 

@@ -36,6 +36,15 @@ back in one copy. Each stage is a ``torch.profiler.record_function`` range
 ``iteration.gan``, ``iteration.cv``); they mark host time while the body
 runs uncaptured or is captured.
 
+Class conditioning (``conditioning="class"``, the JAX package's
+``_cond_classes``): the generator and the stacked gan take ``[z |
+one-hot(class)]``, ``z_size + num_classes`` wide, while ``model_cfg``
+keeps the base ``z_size`` and the discriminator and the classifier stay
+unconditional. The device body concatenates the real batch's one-hot
+labels (the window's static ``labels`` input, float32) onto both z draws,
+so the draws row is the unconditional one; the manifold grid's row i
+conditions on class i mod C (``_with_condition``).
+
 Randomness. Label softening ε comes from ``np.random.default_rng(seed)``
 and is drawn once (the reference's quirk), so it is bit-equal to the JAX
 package's. The per-iteration z draws (z for the fakes and z for the
@@ -67,6 +76,7 @@ and store publishing ('The operations planes').
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import re
@@ -267,12 +277,17 @@ class GanExperiment:
         self.family = registry.get(cfg.model_family)
         self.model_cfg = self.family.make_model_config(cfg)
         self.dis_to_gan, self.gan_to_gen = self.family.sync_maps(self.model_cfg)
+        # class conditioning widens only the gen and gan graphs' input; the
+        # weight-sync maps are keyed by layer name and carry over unchanged
+        self._cond_classes = cfg.num_classes if cfg.conditioning == "class" else 0
+        gen_cfg = (dataclasses.replace(self.model_cfg, z_size=self.model_cfg.z_size + self._cond_classes)
+                   if self._cond_classes else self.model_cfg)
 
         # the three graphs + the transfer classifier (mnist only); gen and
         # gan are initialised separately, as in the reference
         self.dis = self.family.build_discriminator(self.model_cfg)
-        self.gen = self.family.build_generator(self.model_cfg)
-        self.gan = self.family.build_gan(self.model_cfg)
+        self.gen = self.family.build_generator(gen_cfg)
+        self.gan = self.family.build_gan(gen_cfg)
         dis_params = self.dis.init(device=dev)
         self.dis_trainer = GraphTrainer(self.dis)
         self.gan_trainer = GraphTrainer(self.gan)
@@ -299,7 +314,7 @@ class GanExperiment:
         self._eps_real = self._soft_noise(b)
         self._eps_fake = self._soft_noise(b)
         self._soft_cache: Dict[int, tuple] = {}
-        self._z_grid = latent_grid(cfg.latent_grid, cfg.z_size)
+        self._z_grid = self._with_condition(latent_grid(cfg.latent_grid, cfg.z_size))
         self.z_source = self._draw_z
 
         self.timer = PhaseTimer()
@@ -311,6 +326,14 @@ class GanExperiment:
     # -- randomness -------------------------------------------------------
     def _soft_noise(self, n: int) -> np.ndarray:
         return self.config.label_softening * self._noise_rng.standard_normal((n, 1)).astype(np.float32)
+
+    def _with_condition(self, z: np.ndarray) -> np.ndarray:
+        """Host latents widened by a cycling one-hot block (row i conditions
+        on class i mod C); ``z`` itself when unconditional."""
+        if not self._cond_classes:
+            return z
+        onehot = np.eye(self._cond_classes, dtype=np.float32)[np.arange(z.shape[0]) % self._cond_classes]
+        return np.concatenate([z, onehot], axis=1)
 
     def _draw_z(self, dis_step: int, batch: int) -> torch.Tensor:
         """The default z source: ``(2, batch, z_size)`` uniform in [−1, 1)
@@ -407,16 +430,24 @@ class GanExperiment:
     def _body(self, trees: Dict, inputs: Dict[str, torch.Tensor]):
         """The device body: one alternating iteration on ``trees`` (``dis``,
         ``gan``, ``cv``, ``gen``) and ``inputs`` (``features``, ``labels``
-        where the family has a classifier, ``draws``), functional. Returns
-        the new trees and the ``(d_loss, g_loss, cv_loss)`` row."""
+        where the family has a classifier or the run is conditional,
+        ``draws``), functional. Returns the new trees and the ``(d_loss,
+        g_loss, cv_loss)`` row."""
         real_f, real_l = inputs["features"], inputs.get("labels")
         b = real_f.shape[0]
         z, soft1, soft0, dis_scale = self._unpack_draws(inputs["draws"], b)
+        z_fake, z_gan = z[0], z[1]
+        if self._cond_classes:
+            # both generator passes conditioned on the real batch's labels;
+            # the base-z draws are the unconditional ones
+            onehot = real_l.float()
+            z_fake = torch.cat([z_fake, onehot], dim=1)
+            z_gan = torch.cat([z_gan, onehot], dim=1)
         dis_state, gan_state, cv_state, gen_params = trees["dis"], trees["gan"], trees["cv"], trees["gen"]
         with compute_dtype_scope(self._compute_dtype):
             # (a) fake batch from the frozen sampler
             with torch.no_grad(), record_function("iteration.sample_fake"):
-                fake = self.gen.output(gen_params, z[0], train=False).reshape(real_f.shape)
+                fake = self.gen.output(gen_params, z_fake, train=False).reshape(real_f.shape)
             # (b) dis fit: real→soft1 then fake→soft0, two optimizer steps
             with record_function("iteration.dis_real"):
                 dis_state, d1 = self.dis_trainer.train_step(dis_state, real_f, soft1, dis_scale)
@@ -427,7 +458,7 @@ class GanExperiment:
             # (d) generator step through the frozen D on [z, ones]
             ones = torch.ones((b, 1), dtype=torch.float32, device=real_f.device)
             with record_function("iteration.gan"):
-                gan_state, g = self.gan_trainer.train_step(gan_state, z[1], ones)
+                gan_state, g = self.gan_trainer.train_step(gan_state, z_gan, ones)
             # (e) gan → gen refresh; dis → classifier features
             gen_params = ComputationGraph.copy_params(gan_state.params, gen_params, self.gan_to_gen)
             if self.cv is None:
@@ -454,10 +485,16 @@ class GanExperiment:
         loss vectors, freshly allocated."""
         feats = self._to_device(features)
         window = {"features": feats}
-        if self.cv is not None:  # only the classifier step reads labels
+        # the classifier step and the generator's condition read labels
+        if self.cv is not None or self._cond_classes:
             if labels is None:
-                raise ValueError("the transfer classifier trains on labels; the batch has none")
+                raise ValueError("the transfer classifier and class conditioning train on "
+                                 "labels; the batch has none")
             window["labels"] = self._to_device(labels)
+            if self._cond_classes and window["labels"].shape[-1] != self._cond_classes:
+                raise ValueError(
+                    f"class conditioning needs one-hot labels of width {self._cond_classes} "
+                    f"(num_classes); the batch's labels are {tuple(window['labels'].shape[2:])}")
         window["draws"] = self._window_draws(feats.shape[0], feats.shape[1])
         trees, rows = self.graphs.run(self._trees(), window)
         self._set_trees(trees)

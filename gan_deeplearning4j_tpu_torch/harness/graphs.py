@@ -13,7 +13,10 @@ The body is ``body(trees, inputs) -> (new_trees, loss_row)``: ``trees`` is
 a dict of the experiment's states (``TrainState``s and params trees, None
 allowed), ``inputs`` a dict of tensors (the real batch, its labels, and
 ``draws``: every input the host keys by step, packed into one float32 row:
-z, label noise, the dis-LR scale, WGAN-GP's z and ε). It must be
+z, label noise, the dis-LR scale, WGAN-GP's z and ε). The labels are a
+static input like the features, copied in before each replay: a
+class-conditional run's one-hot, which the body concatenates onto z, is
+read from them, never frozen at capture. The body must be
 functional (new tensors out, nothing written into its arguments) and must
 read the host clock, the step counters or a host RNG nowhere: a captured
 graph replays whatever the host computed at capture time, forever.

@@ -93,6 +93,7 @@ class WganGpExperiment(GanExperiment):
         self.gen_state = self._cast_state(self.gen_state)
         # no transfer classifier; the generator is what gets published
         self.cv = self.cv_trainer = self.cv_state = None
+        self._cond_classes = 0  # validate() refuses a conditional WGAN-GP
         self.gen = self.trainer.generator
         self._z_grid = latent_grid(cfg.latent_grid, self.model_cfg.z_size)
         self.draw_source = self._draw

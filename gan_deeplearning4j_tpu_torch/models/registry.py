@@ -5,8 +5,9 @@ only) the transfer classifier, so the experiment runs any family through
 the same alternating loop. WGAN-GP brings its own experiment class.
 
 Families: ``mnist`` (the reference application), ``tabular``, ``image``
-(aliases ``cifar10`` and ``celeba64``) and ``wgan_gp``. An unknown name
-raises ``KeyError``.
+(aliases ``cifar10`` and ``celeba64``) and ``wgan_gp``; ``register`` adds a
+user-defined one and ``unregister`` removes it (built-ins stay). An unknown
+name raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -135,6 +136,32 @@ _FAMILIES: Dict[str, GanFamily] = {
 }
 # BASELINE.md config aliases
 _ALIASES = {"cifar10": "image", "celeba64": "image"}
+_BUILTINS = frozenset(_FAMILIES)
+
+
+def register(family: GanFamily, *, overwrite: bool = False) -> GanFamily:
+    """Add a user-defined family to the registry; the experiment harness
+    and the CLI then accept ``family.name`` like a built-in one."""
+    if family.name in _ALIASES:
+        # get() resolves aliases first: a family of that name would be unreachable
+        raise ValueError(
+            f"family name {family.name!r} collides with the "
+            f"{_ALIASES[family.name]!r} alias"
+        )
+    if family.name in _BUILTINS:
+        # unregister refuses built-ins, so a replaced one could not come back
+        raise ValueError(f"cannot replace built-in family {family.name!r}")
+    if family.name in _FAMILIES and not overwrite:
+        raise ValueError(f"family {family.name!r} already registered")
+    _FAMILIES[family.name] = family
+    return family
+
+
+def unregister(name: str) -> None:
+    """Remove a user-registered family; built-ins stay."""
+    if name in _BUILTINS:
+        raise ValueError(f"cannot unregister built-in family {name!r}")
+    _FAMILIES.pop(name, None)
 
 
 def names() -> Tuple[str, ...]:

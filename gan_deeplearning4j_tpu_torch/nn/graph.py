@@ -15,16 +15,18 @@
 
 Params are a plain dict of dicts of tensors, ``{layer: {name: tensor}}``,
 keyed exactly as in the JAX package, and every method is functional: it
-returns new dicts and never writes into a tensor it was given. Combining
-vertices (MergeVertex, ElementWiseVertex) wait for ROADMAP.md queue 1,
-'Other families'.
+returns new dicts and never writes into a tensor it was given. The
+combining vertices ``MergeVertex`` (concatenation on the trailing axis) and
+``ElementWiseVertex`` (add, subtract, product) join through
+``GraphBuilder.add_vertex``; they own no params, and their gradients flow
+through autograd.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -79,14 +81,72 @@ class GraphConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MergeVertex:
+    """Concatenate the inputs along the trailing feature or channel axis
+    (DL4J MergeVertex)."""
+
+    def apply(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        return torch.cat(list(xs), dim=-1)
+
+    def output_type(self, in_types: Sequence[InputType]) -> InputType:
+        kinds = {t.kind for t in in_types}
+        if kinds == {"ff"}:
+            return InputType.feed_forward(sum(t.shape[0] for t in in_types))
+        if kinds == {"cnn"}:
+            h, w, _ = in_types[0].shape
+            return InputType.convolutional(h, w, sum(t.shape[2] for t in in_types))
+        raise ValueError(f"MergeVertex: incompatible input kinds {kinds}")
+
+    def to_dict(self) -> dict:
+        return {"type": "MergeVertex"}
+
+
+@dataclasses.dataclass(frozen=True)
+class ElementWiseVertex:
+    """Elementwise combine of the inputs, left to right (DL4J
+    ElementWiseVertex: ``"add"``, ``"subtract"``, ``"product"``)."""
+
+    op: str = "add"
+
+    def apply(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        out = xs[0]
+        for x in xs[1:]:
+            if self.op == "add":
+                out = out + x
+            elif self.op == "product":
+                out = out * x
+            elif self.op == "subtract":
+                out = out - x
+            else:
+                raise ValueError(f"unknown elementwise op {self.op!r}")
+        return out
+
+    def output_type(self, in_types: Sequence[InputType]) -> InputType:
+        return in_types[0]
+
+    def to_dict(self) -> dict:
+        return {"type": "ElementWiseVertex", "op": self.op}
+
+
+def _vertex_from_dict(d: dict):
+    if d["type"] == "MergeVertex":
+        return MergeVertex()
+    if d["type"] == "ElementWiseVertex":
+        return ElementWiseVertex(d["op"])
+    raise KeyError(f"unknown vertex type {d['type']!r}")
+
+
+@dataclasses.dataclass(frozen=True)
 class VertexSpec:
-    """A resolved layer node. ``raw_layer`` keeps the pre-default-resolution
-    config (None fields = "inherit") so transfer learning can re-resolve it
+    """A resolved node: a layer (with an optional preprocessor) or a
+    combining vertex. ``raw_layer`` keeps the pre-default-resolution config
+    (None fields = "inherit") so transfer learning can re-resolve it
     against a fine-tuned config."""
 
     name: str
     inputs: Tuple[str, ...]
-    layer: Layer
+    layer: Optional[Layer] = None
+    vertex: Optional[object] = None
     preprocessor: Optional[object] = None
     in_type: Optional[InputType] = None
     out_type: Optional[InputType] = None
@@ -123,6 +183,13 @@ class GraphBuilder:
         self._nodes.append(
             {"name": name, "layer": layer, "inputs": tuple(inputs), "preprocessor": preprocessor}
         )
+        return self
+
+    def add_vertex(self, name: str, vertex, *inputs: str) -> "GraphBuilder":
+        if name in self._names:
+            raise ValueError(f"duplicate name {name!r}")
+        self._names.add(name)
+        self._nodes.append({"name": name, "vertex": vertex, "inputs": tuple(inputs)})
         return self
 
     def set_outputs(self, *names: str) -> "GraphBuilder":
@@ -196,6 +263,15 @@ class GraphBuilder:
 
     def _finalize_node(self, node: dict, known: Dict[str, InputType]) -> VertexSpec:
         in_types = [known[i] for i in node["inputs"]]
+        if "vertex" in node:
+            vertex = node["vertex"]
+            return VertexSpec(
+                name=node["name"],
+                inputs=node["inputs"],
+                vertex=vertex,
+                in_type=in_types[0],
+                out_type=vertex.output_type(in_types),
+            )
         layer = self._resolve_layer_defaults(node["layer"])
         if len(in_types) != 1:
             raise ValueError(f"layer {node['name']!r} must have exactly one input")
@@ -230,13 +306,20 @@ class ComputationGraph:
     def vertex(self, name: str) -> VertexSpec:
         return self._by_name[name]
 
+    def layer_names(self) -> List[str]:
+        return [v.name for v in self.vertices if v.layer is not None]
+
+    def _param_layers(self) -> List[VertexSpec]:
+        """The vertices whose layer owns params (combining vertices own none)."""
+        return [v for v in self.vertices if v.layer is not None and v.layer.has_params()]
+
     def layer_updaters(self) -> Dict[str, UpdaterSpec]:
         """Per-layer updater specs of the layers that own params (what
         ``GraphOptimizer`` applies)."""
-        return {v.name: v.layer.updater for v in self.vertices if v.layer.has_params()}
+        return {v.name: v.layer.updater for v in self._param_layers()}
 
     def param_roles(self) -> Dict[str, Dict[str, str]]:
-        return {v.name: v.layer.param_roles() for v in self.vertices if v.layer.has_params()}
+        return {v.name: v.layer.param_roles() for v in self._param_layers()}
 
     def output_layers(self) -> List[VertexSpec]:
         return [
@@ -248,11 +331,7 @@ class ComputationGraph:
     def param_shapes(self) -> Dict[str, Dict[str, Tuple[int, ...]]]:
         """``{layer: {name: shape}}`` for every layer that owns params, without
         allocating anything."""
-        return {
-            v.name: v.layer.param_shapes(v.in_type)
-            for v in self.vertices
-            if v.layer.has_params()
-        }
+        return {v.name: v.layer.param_shapes(v.in_type) for v in self._param_layers()}
 
     def param_count(self, params: Optional[Dict] = None) -> int:
         if params is not None:
@@ -269,11 +348,10 @@ class ComputationGraph:
         dev = resolve_device(device)
         generator = torch.Generator().manual_seed(self.config.seed if seed is None else seed)
         params: Dict[str, Dict[str, torch.Tensor]] = {}
-        for v in self.vertices:
-            if v.layer.has_params():
-                params[v.name] = {
-                    k: t.to(dev) for k, t in v.layer.init(generator, v.in_type).items()
-                }
+        for v in self._param_layers():
+            params[v.name] = {
+                k: t.to(dev) for k, t in v.layer.init(generator, v.in_type).items()
+            }
         return params
 
     # -- forward ------------------------------------------------------------
@@ -287,6 +365,9 @@ class ComputationGraph:
         acts: Dict[str, torch.Tensor] = dict(inputs)
         new_params = dict(params)
         for v in self.vertices:
+            if v.vertex is not None:
+                acts[v.name] = v.vertex.apply([acts[i] for i in v.inputs])
+                continue
             x = acts[v.inputs[0]]
             if v.preprocessor is not None:
                 x = v.preprocessor(x)
@@ -324,9 +405,9 @@ class ComputationGraph:
         term). Biases, BatchNorm gains and running stats are exempt, which
         torch's ``weight_decay`` would not respect."""
         total = None
-        for v in self.vertices:
+        for v in self._param_layers():
             l2 = v.layer.l2 or 0.0
-            if not v.layer.has_params() or l2 <= 0.0:
+            if l2 <= 0.0:
                 continue
             for pname, role in v.layer.param_roles().items():
                 if role == "weight":
@@ -415,8 +496,9 @@ class ComputationGraph:
         for v in self.vertices:
             n = counts.get(v.name, 0)
             total += n
+            kind = v.layer.kind if v.layer is not None else type(v.vertex).__name__
             pre = f" [+{type(v.preprocessor).__name__}]" if v.preprocessor is not None else ""
-            rows.append((f"{v.name} ({v.layer.kind}){pre}", str(v.in_type), str(v.out_type), str(n)))
+            rows.append((f"{v.name} ({kind}){pre}", str(v.in_type), str(v.out_type), str(n)))
         widths = [max(len(r[i]) for r in rows) for i in range(4)]
         lines = ["  ".join(c.ljust(w) for c, w in zip(r, widths)).rstrip() for r in rows]
         lines.insert(1, "-" * (sum(widths) + 6))
@@ -428,9 +510,13 @@ class ComputationGraph:
     def to_dict(self) -> dict:
         nodes = []
         for v in self.vertices:
-            node = {"name": v.name, "inputs": list(v.inputs), "layer": v.layer.to_dict()}
-            if v.preprocessor is not None:
-                node["preprocessor"] = v.preprocessor.to_dict()
+            node = {"name": v.name, "inputs": list(v.inputs)}
+            if v.layer is not None:
+                node["layer"] = v.layer.to_dict()
+                if v.preprocessor is not None:
+                    node["preprocessor"] = v.preprocessor.to_dict()
+            else:
+                node["vertex"] = v.vertex.to_dict()
             nodes.append(node)
         return {
             "config": self.config.to_dict(),
@@ -447,10 +533,8 @@ class ComputationGraph:
         builder.set_input_types(*[InputType.from_dict(t) for t in d["input_types"]])
         for node in d["nodes"]:
             if "layer" not in node:
-                raise NotImplementedError(
-                    f"vertex {node['name']!r} ({node['vertex']['type']}) is not ported yet: "
-                    f"combining vertices wait for ROADMAP.md queue 1, 'Other families'"
-                )
+                builder.add_vertex(node["name"], _vertex_from_dict(node["vertex"]), *node["inputs"])
+                continue
             pre = preprocessor_from_dict(node["preprocessor"]) if "preprocessor" in node else None
             builder.add_layer(
                 node["name"], layer_from_dict(node["layer"]), *node["inputs"], preprocessor=pre

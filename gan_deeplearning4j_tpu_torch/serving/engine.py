@@ -56,14 +56,23 @@ bucket of the ladder, so the device only ever sees bucket shapes.
   string (``"fp16"``, say) is recorded and served in fp32, as the JAX
   engine serves it.
 
-Not yet ported (ROADMAP.md queue 1): conditional zoo bundles ("Class
-conditioning"), refused at load; more than one replica and the mesh bulk
-lane ("Serving, the rest"), refused at construction.
+- **Conditional bundles.** A bundle whose ``"zoo"`` block declares
+  ``conditioning: "class"`` (``conditional``, ``class_count``) has a
+  generator that takes ``[z | one-hot(class)]``; the engine checks that
+  ``z_size + num_classes`` is the generator's input width, as the JAX
+  engine does. The service appends the one-hot to base-z rows of
+  ``sample?class=k`` (``latent_width``), so a conditional ``sample`` runs
+  the same (kind, bucket) graphs as any other: no capture and no ladder
+  entry of its own.
+
+Not yet ported (ROADMAP.md queue 1): more than one replica and the mesh
+bulk lane ("Serving, the rest"), refused at construction.
 
 Request kinds (a generator-only bundle, as the tabular, image and WGAN-GP
 families publish, serves ``sample`` alone):
 
-- ``sample``:   z (n, z_size)        -> generator images (n, num_features)
+- ``sample``:   z (n, z_size), plus the one-hot of a conditional bundle
+                                     -> generator images (n, num_features)
 - ``classify``: x (n, num_features)  -> class probabilities (n, num_classes)
 - ``features``: x (n, num_features)  -> activations at the classifier's
   feature vertex (mnist: ``dis_dense_layer_6``)
@@ -101,15 +110,6 @@ _POOL_LIMIT = 4
 
 #: forward runs on the side stream before a (kind, bucket) is captured
 WARMUP_RUNS = 2
-
-
-def _refuse_unported(scenario: Optional[dict]) -> None:
-    """Raise for a bundle this slice of the port cannot serve faithfully."""
-    if scenario and scenario.get("conditioning") == "class":
-        raise NotImplementedError(
-            "conditional zoo bundles (sample?class=k) are not ported yet: "
-            "ROADMAP.md queue 1, 'Class conditioning'"
-        )
 
 
 class _StagingBuf:
@@ -189,7 +189,6 @@ class ServingEngine:
     ):
         if not models:
             raise ValueError("ServingEngine needs at least one model")
-        _refuse_unported(scenario)
         # "all" (or None) is every device the engine may route to:
         # torch.cuda.device_count() capped at one until the multi-GPU slice
         if replicas not in (None, "all", 1):
@@ -201,6 +200,8 @@ class ServingEngine:
         self._cuda = self.device.type == "cuda"
         if self._cuda:
             pin_fp32_precision()
+        #: the bundle's zoo block (dataset identity, conditioning), the raw
+        #: dict; None for a bundle without one (unconditional)
         self.scenario = dict(scenario) if scenario else None
         self.generation = generation
         self.precision = precision
@@ -255,6 +256,14 @@ class ServingEngine:
             kind: self._graphs[role].input_types[0].features
             for kind, (role, _) in self._kinds.items()
         }
+        if self.conditional and "sample" in self._in_width:
+            declared = int(self.scenario.get("z_size", 0)) + self.class_count
+            if self._in_width["sample"] != declared:
+                raise ValueError(
+                    f"conditional bundle declares z_size+classes = {declared} "
+                    f"but the generator takes {self._in_width['sample']} "
+                    f"inputs — manifest and checkpoint disagree"
+                )
         self._ran: set = set()  # (kind, bucket) pairs run at least once
         self._compile_counts: Dict[str, int] = {k: 0 for k in self._kinds}
         self._serve_compiles: Dict[str, int] = {k: 0 for k in self._kinds}
@@ -337,7 +346,6 @@ class ServingEngine:
         loaded — a serving replica has no optimizer."""
         from gan_deeplearning4j_tpu_torch.utils.serializer import read_model
 
-        _refuse_unported(scenario)
         dev = resolve_device(device)
         models = {}
         with TRACER.span("serve.engine.restore", generation=generation):
@@ -410,6 +418,27 @@ class ServingEngine:
 
     def input_width(self, kind: str) -> int:
         return self._in_width[kind]
+
+    # -- zoo scenario ---------------------------------------------------------
+    @property
+    def conditional(self) -> bool:
+        """Whether the bundle's zoo block declares class conditioning (what
+        makes ``sample?class=k`` legal)."""
+        return bool(self.scenario) and self.scenario.get("conditioning") == "class"
+
+    @property
+    def class_count(self) -> int:
+        """The number of condition classes (0 when unconditional)."""
+        return int(self.scenario.get("num_classes", 0)) if self.conditional else 0
+
+    def latent_width(self, kind: str) -> int:
+        """The caller-facing latent width of a kind: the input width less
+        the one-hot block the service appends to a conditional
+        ``sample?class=k`` row; ``input_width`` for every other kind."""
+        width = self._in_width[kind]
+        if kind == "sample" and self.conditional:
+            return width - self.class_count
+        return width
 
     @property
     def replica_count(self) -> int:

@@ -6,9 +6,13 @@ and a stdlib-only HTTP JSON endpoint (``http.server.ThreadingHTTPServer``).
 Endpoints:
 
 - ``POST /v1/sample``    {"data": [[z...], ...]}  -> {"status","data"}
+- ``POST /v1/sample?class=k``  base-z rows of a conditional bundle; the
+  service appends the one-hot of class k, so the rows ride the same
+  (kind, bucket) graphs
 - ``POST /v1/classify``  {"data": [[x...], ...]}  -> {"status","data"}
 - ``POST /v1/features``  {"data": [[x...], ...]}  -> {"status","data"}
 - ``GET  /healthz``      liveness + loaded kinds + served bundle generation
+  (+ the bundle's zoo scenario)
 - ``GET  /metrics``      request counters, p50/p95/p99 latency, batch-
   occupancy histogram, shed counts, per-kind compile counts, generation;
   ``?format=prom`` switches to Prometheus text exposition;
@@ -26,11 +30,12 @@ Endpoints:
 - ``GET  /debug/spans``  the span tracer's Chrome trace JSON
 
 Shed responses map to HTTP 503 (overloaded / deadline), engine errors to
-500, bad requests to 400, unknown kinds and routes to 404.
-
-Every bundle the port loads is unconditional (conditional bundles wait
-for ROADMAP.md queue 1, 'Class conditioning'), so ``?class=k`` answers
-400 as it does for an unconditional bundle in the JAX service.
+500, bad requests to 400, unknown kinds and routes to 404. ``?class=``
+answers 400 on another kind, on an unconditional bundle, for a class that
+is not an integer in ``[0, classes)`` and for rows that are not
+latent-wide; a conditional bundle's bare latent-wide ``sample`` rows
+without ``?class=`` answer 400, and its full-width rows (the caller's own
+one-hot) are served. Statuses and messages are the JAX service's.
 """
 
 from __future__ import annotations
@@ -253,15 +258,53 @@ class InferenceService:
                 return 400, {"status": "error", "error": f"bad 'data': {exc}"}
             if rows.ndim == 1:
                 rows = rows[None, :]
-            if params.get("class", [None])[0] is not None:
+            # sample?class=k takes base-z rows and appends the one-hot
+            # here, so the widened rows go through the width check, the
+            # batcher and the bucket graphs unchanged
+            cls_param = params.get("class", [None])[0]
+            if cls_param is not None:
                 if kind != "sample":
                     return 400, {"status": "error",
                                  "error": f"?class= applies to the sample "
                                           f"kind, not {kind!r}"}
-                return 400, {"status": "error",
-                             "error": "this bundle is unconditional — "
-                                      "its manifest declares no class "
-                                      "conditioning"}
+                if not engine.conditional:
+                    return 400, {"status": "error",
+                                 "error": "this bundle is unconditional — "
+                                          "its manifest declares no class "
+                                          "conditioning"}
+                try:
+                    label = int(cls_param)
+                except ValueError:
+                    return 400, {"status": "error",
+                                 "error": f"bad 'class': {cls_param!r}"}
+                if not 0 <= label < engine.class_count:
+                    return 400, {
+                        "status": "error",
+                        "error": f"class {label} out of range "
+                                 f"[0, {engine.class_count})",
+                    }
+                latent = engine.latent_width(kind)
+                if rows.ndim != 2 or rows.shape[0] < 1 or rows.shape[1] != latent:
+                    return 400, {
+                        "status": "error",
+                        "error": f"{kind}?class={label}: expected "
+                                 f"(n >= 1, {latent}) latent rows, "
+                                 f"got {tuple(rows.shape)}",
+                    }
+                onehot = np.zeros((rows.shape[0], engine.class_count), dtype=np.float32)
+                onehot[:, label] = 1.0
+                rows = np.concatenate([rows, onehot], axis=1)
+            elif kind == "sample" and engine.conditional:
+                # full-width rows (the caller's own one-hot) are served; a
+                # bare latent-wide row without ?class= is a caller error
+                if rows.ndim == 2 and rows.shape[1] == engine.latent_width(kind):
+                    return 400, {
+                        "status": "error",
+                        "error": f"sample: got {rows.shape[1]}-wide latent "
+                                 f"rows without ?class=k — pass ?class= or "
+                                 f"supply full {engine.input_width(kind)}-"
+                                 f"wide rows with the embedding",
+                    }
             width = engine.input_width(kind)
             # reject malformed shapes HERE: a bad row must 400 its own
             # request, never reach the shared batch and error its riders

@@ -254,18 +254,23 @@ def test_registry_resolves_every_family_and_make_experiment_dispatches():
     dict(model_family="image", height=8, width=8, channels=3, num_features=100),
 ])
 def test_validate_makes_the_jax_packages_family_checks(overrides):
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError) as ref:
         JaxConfig(**overrides).validate()
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError) as port:
         ExperimentConfig(**overrides).validate()
+    assert str(port.value) == str(ref.value)
 
 
 def test_validate_accepts_every_family_and_refuses_class_conditioning():
     for family in ("tabular", "image", "cifar10", "celeba64", "wgan_gp"):
         _config(ExperimentConfig, "image", model_family=family, batch_size_train=10).validate()
     ExperimentConfig(model_family="tabular", num_features=17).validate()  # no h·w·c check
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'Class conditioning'"):
-        _config(ExperimentConfig, "image", conditioning="class").validate()
+    # class conditioning validates for the image family, as in the JAX
+    # package (tests/test_torch_zoo.py trains it); WGAN-GP refuses it with
+    # the JAX package's ValueError (test_validate_makes_the_jax_packages_family_checks)
+    cfg = _config(ExperimentConfig, "image", conditioning="class").validate()
+    _config(JaxConfig, "image", conditioning="class").validate()
+    assert cfg.conditioning == "class"
 
 
 @pytest.mark.parametrize("overrides", [

@@ -148,18 +148,99 @@ def test_params_from_numpy_checks_keys_shapes_and_dtypes():
 def test_training_mode_and_unported_layers_raise():
     # train=True runs now (tests/test_torch_train.py), a dropout layer
     # builds (tests/test_torch_family_ops.py) and so does QuantDenseLayer; a
-    # topology with a vertex the port lacks still refuses to build, naming
-    # its ROADMAP item
+    # topology with a combining vertex builds as it does in the JAX package
     topology = pt_models.build_generator().to_dict()
     topology["nodes"][1]["layer"] = {"type": "DropoutLayer", "rate": 0.5}
     assert isinstance(PtGraph.from_dict(topology).vertices[1].layer, pt_layers.DropoutLayer)
-    topology["nodes"][1] = {"name": "merge", "inputs": ["gen_batch_1"],
-                            "vertex": {"type": "MergeVertex"}}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'Other families'"):
-        PtGraph.from_dict(topology)
+    topology = pt_models.build_generator().to_dict()
+    topology["nodes"].insert(1, {"name": "merge", "inputs": ["gen_batch_1", "gen_batch_1"],
+                                 "vertex": {"type": "MergeVertex"}})
+    topology["nodes"][2]["inputs"] = ["merge"]
+    port, ref = PtGraph.from_dict(topology), JaxGraph.from_dict(_norm(topology))
+    assert _norm(port.to_dict()) == _norm(ref.to_dict())
+    assert port.param_shapes()["gen_dense_layer_2"]["W"] == (4, 1024)
+    assert port.layer_names() == ref.layer_names() and "merge" not in port.layer_names()
     # the int8 QuantDenseLayer builds, resolved lazily from quant/layers.py
     quant = pt_layers.layer_from_dict({"type": "QuantDenseLayer", "n_out": 4, "act_scale": 0.5})
     assert type(quant).__name__ == "QuantDenseLayer" and quant.act_scale == 0.5
     assert pt_layers.layer_from_dict(quant.to_dict()) == quant
     with pytest.raises(KeyError, match="unknown layer type"):
         pt_layers.layer_from_dict({"type": "Bogus"})
+
+
+# -- combining vertices -----------------------------------------------------------
+
+def _vertex_graph(kind):
+    """A small graph with a combining vertex, built by the JAX package:
+    two dense branches (or two conv branches) on one input, combined, then
+    an output layer."""
+    from gan_deeplearning4j_tpu.nn import graph as jg
+    from gan_deeplearning4j_tpu.nn import layers as jl
+    from gan_deeplearning4j_tpu.nn.input_type import InputType as JaxInputType
+
+    b = jg.GraphBuilder(jg.GraphConfig(seed=3, l2=1e-4))
+    b.add_inputs("x")
+    if kind == "merge_cnn":
+        b.set_input_types(JaxInputType.convolutional_flat(6, 6, 2))
+        b.add_layer("c1", jl.ConvolutionLayer(kernel=3, n_out=3), "x")
+        b.add_layer("c2", jl.ConvolutionLayer(kernel=3, n_out=2), "x")
+        b.add_vertex("combine", jg.MergeVertex(), "c1", "c2")
+    else:
+        b.set_input_types(JaxInputType.feed_forward(5))
+        b.add_layer("d1", jl.DenseLayer(n_out=4), "x")
+        b.add_layer("d2", jl.DenseLayer(n_out=4, activation="sigmoid"), "x")
+        vertex = jg.MergeVertex() if kind == "merge" else jg.ElementWiseVertex(kind)
+        b.add_vertex("combine", vertex, "d1", "d2", *(("d1",) if kind == "product" else ()))
+    b.add_layer("out", jl.OutputLayer(n_out=3, activation="softmax", loss="mcxent"), "combine")
+    b.set_outputs("out")
+    return b.build()
+
+
+@pytest.mark.parametrize("kind", ["merge", "merge_cnn", "add", "subtract", "product"])
+def test_combining_vertices_match_jax_forward_and_gradients(kind):
+    """``MergeVertex`` (feature and channel concatenation) and
+    ``ElementWiseVertex`` (add, subtract, and a three-input product): the
+    topology crosses between the packages, and outputs, loss and every
+    param gradient agree within 1e-5; the vertex owns no params."""
+    import jax
+
+    jgraph = _vertex_graph(kind)
+    port = PtGraph.from_dict(_norm(jgraph.to_dict()))
+    assert _norm(port.to_dict()) == _norm(jgraph.to_dict())
+    assert port.layer_names() == jgraph.layer_names() and "combine" not in port.layer_names()
+    assert port.vertex("combine").out_type.to_dict() == jgraph.vertex("combine").out_type.to_dict()
+    assert "combine" not in port.param_shapes() and "(" + type(port.vertex("combine").vertex).__name__ in \
+        port.summary()
+    tree = random_params({k: dict(v) for k, v in port.param_shapes().items()}, 4)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((4, port.input_types[0].features)).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 4)]
+    (jloss, _), jgrads = jax.value_and_grad(lambda p: jgraph.loss(p, x, y), has_aux=True)(tree)
+    params = params_from_numpy(tree, "cpu", graph=port)
+    leaves = [t.requires_grad_(True) for lp in params.values() for t in lp.values()]
+    ploss, (outs, _) = port.loss(params, torch.from_numpy(x), torch.from_numpy(y))
+    grads = torch.autograd.grad(ploss, leaves)
+    np.testing.assert_allclose(float(ploss.detach()), float(jloss), **TOL)
+    np.testing.assert_allclose(outs["out"].detach().numpy(), np.asarray(jgraph.output(tree, x)), **TOL)
+    want = [np.asarray(jgrads[layer][name]) for layer, lp in params.items() for name in lp]
+    for got, ref in zip(grads, want):
+        np.testing.assert_allclose(got.numpy(), ref, **TOL)
+
+
+def test_vertex_errors_match_jax():
+    from gan_deeplearning4j_tpu.nn import graph as jg
+    from gan_deeplearning4j_tpu.nn.input_type import InputType as JaxInputType
+    from gan_deeplearning4j_tpu_torch.nn import graph as pg
+    from gan_deeplearning4j_tpu_torch.nn.input_type import InputType
+
+    for mod, it in ((jg, JaxInputType), (pg, InputType)):
+        with pytest.raises(ValueError, match="incompatible input kinds"):
+            mod.MergeVertex().output_type([it.feed_forward(3), it.convolutional(2, 2, 1)])
+        with pytest.raises(ValueError, match="unknown elementwise op 'max'"):
+            mod.ElementWiseVertex("max").apply([np.ones(2), np.ones(2)] if mod is jg
+                                               else [torch.ones(2), torch.ones(2)])
+        with pytest.raises(KeyError, match="unknown vertex type 'Bogus'"):
+            mod._vertex_from_dict({"type": "Bogus"})
+        b = mod.GraphBuilder().add_inputs("x")
+        with pytest.raises(ValueError, match="duplicate name 'x'"):
+            b.add_vertex("x", mod.MergeVertex(), "x")

@@ -161,7 +161,7 @@ def _eager_iterations(exp, x, y):
     for k in range(x.shape[0]):
         inputs = {"features": torch.from_numpy(x[k]).to(exp.device),
                   "draws": exp._window_draws(1, x.shape[1])[0]}
-        if exp.cv is not None:
+        if exp.cv is not None or exp._cond_classes:
             inputs["labels"] = torch.from_numpy(y[k]).to(exp.device)
         trees, row = exp._body(exp._trees(), inputs)
         exp._set_trees(trees)
@@ -184,13 +184,16 @@ def _assert_same_states(a, b):
     ("mnist", {}), ("mnist", {"compute_dtype": "bf16"}), ("mnist", {"param_dtype": "bf16"}),
     ("tabular", {}), ("cifar10", {}), ("wgan_gp", {}), ("wgan_gp", {"compute_dtype": "bf16"}),
     ("wgan_gp", {"param_dtype": "bf16"}),
+    ("mnist", {"conditioning": "class"}), ("cifar10", {"conditioning": "class"}),
 ])
 def test_a_captured_window_equals_the_eager_body_and_captures_each_key_once(card, family, dtypes):
     """Two windows of 4 iterations (WGAN-GP rounds, the gradient penalty's
     double backward inside the graph) as graph replays, against the device
     body applied eagerly from the same init and draws: every leaf, dtype,
     step counter and loss bit-equal. Each key is captured once; the second
-    window captures nothing."""
+    window captures nothing. A class-conditional run reads its one-hot from
+    the window's labels, which differ between the windows: a one-hot frozen
+    at capture would show in the second."""
     captured, eager = _train_experiment(family, **dtypes), _train_experiment(family, **dtypes)
     assert captured.graphs.captured
     x = captured.family.synthetic_data(8 * 16, captured.model_cfg, 3).reshape(2, 4, 16, -1)
@@ -317,3 +320,39 @@ def test_a_capture_during_background_warmup_while_run_host_runs(card):
     assert stats["captured"] and stats["graph_pool_bytes"] > 0
     engine.close()
     assert engine.graph_stats() == {}
+
+
+@pytest.mark.cuda
+def test_sample_by_class_replays_the_captured_graphs_and_captures_nothing(card):
+    """A conditional bundle's ``sample?class=k`` for every class, through
+    the service: the one-hot rides the padded bucket, so the engine captures
+    one graph per (kind, bucket) in warmup and none after, and every answer
+    equals ``run_host`` on the latent + one-hot rows bit for bit."""
+    from gan_deeplearning4j_tpu_torch.models import dcgan_mnist
+    from gan_deeplearning4j_tpu_torch.serving import InferenceService, ServingEngine
+    from gan_deeplearning4j_tpu_torch.zoo import ScenarioManifest
+
+    scenario = ScenarioManifest(conditioning="class", num_classes=10, z_size=2)
+    gen = dcgan_mnist.build_generator(dcgan_mnist.DcganConfig(z_size=scenario.sample_input_width))
+    engine = ServingEngine({"generator": (gen, gen.init(seed=666, device="cpu"))},
+                           scenario=scenario.to_dict(), device="cuda", export_gauge=False)
+    engine.warmup()
+    captures = dict(engine.compile_counts)
+    assert captures == {"sample": len(engine.buckets)}
+    service = InferenceService(engine, warmup=False)
+    rng = np.random.default_rng(4)
+    try:
+        for k in range(10):
+            for n in (1, 3, 21, 130):
+                z = rng.random((n, 2), dtype=np.float32) * 2 - 1
+                status, body = service.handle("POST", f"/v1/sample?class={k}", {"data": z.tolist()})
+                assert status == 200, body
+                onehot = np.zeros((n, 10), dtype=np.float32)
+                onehot[:, k] = 1.0
+                want = engine.run_host("sample", np.concatenate([z, onehot], axis=1))
+                assert np.array_equal(np.asarray(body["data"], dtype=np.float32), want)
+    finally:
+        service.close()
+    assert engine.compile_counts == captures
+    assert engine.serve_compile_counts == {"sample": 0}
+    engine.close()

@@ -210,7 +210,7 @@ def test_full_width_dcgan_bundle_serves_like_the_jax_graphs(tmp_path):
 @pytest.mark.parametrize("extra,ok", [
     ({"precision": "bf16"}, True),
     ({"precision": "int8"}, True),
-    ({"zoo": {"conditioning": "class", "num_classes": 10, "z_size": 2}}, False),
+    ({"zoo": {"conditioning": "class", "num_classes": 3, "z_size": 1}}, True),
     ({"zoo": {"conditioning": "none", "dataset": "mnist"}}, True),
     ({"ladder": {"buckets": [2, 16]}}, True),
     ({"precision": "fp16"}, True),
@@ -220,7 +220,9 @@ def test_bundles_this_slice_refuses_or_loads(tmp_path, tiny_bundle, extra, ok):
     refused naming its ROADMAP item. A loaded one serves every kind as the
     JAX engine does, within the file's tolerance, and reports the same
     precision: a precision the engines do not know ("fp16") is recorded and
-    served in fp32, as the reference serves it."""
+    served in fp32, as the reference serves it. A conditional zoo block
+    (z 1 + 3 classes = the generator's 4 inputs) makes both engines
+    conditional with the same latent widths."""
     directory = str(tmp_path / "b")
     os.makedirs(directory)
     for name in ("gen.zip", "cv.zip"):
@@ -243,6 +245,9 @@ def test_bundles_this_slice_refuses_or_loads(tmp_path, tiny_bundle, extra, ok):
     probs = eng.run("classify", np.random.default_rng(3).random((3, FEAT), dtype=np.float32))
     assert probs.shape == (3, CLASSES) and np.allclose(probs.sum(-1), 1.0, atol=1e-5)
     assert set(eng.kinds) == set(ref.kinds) == {"sample", "classify", "features"}
+    assert (eng.conditional, eng.class_count) == (ref.conditional, ref.class_count)
+    assert eng.conditional == (extra.get("zoo", {}).get("conditioning") == "class")
+    assert all(eng.latent_width(k) == ref.latent_width(k) for k in eng.kinds)
     rng = np.random.default_rng(4)
     for kind in eng.kinds:
         rows = rng.standard_normal((5, eng.input_width(kind))).astype(np.float32)
@@ -344,6 +349,7 @@ def test_importing_the_port_loads_no_jax():
         "import gan_deeplearning4j_tpu_torch.optim\n"
         "import gan_deeplearning4j_tpu_torch.parallel\n"
         "import gan_deeplearning4j_tpu_torch.zoo\n"
+        "import gan_deeplearning4j_tpu_torch.zoo.drill\n"
         "import gan_deeplearning4j_tpu_torch.quant\n"
         "import gan_deeplearning4j_tpu_torch.quant.bench\n"
         "import gan_deeplearning4j_tpu_torch.deploy\n"
@@ -376,7 +382,8 @@ def test_importing_the_port_loads_no_jax():
 def test_port_sources_never_import_jax_or_the_jax_package():
     pattern = re.compile(
         r"^\s*(import jax|from jax|import gan_deeplearning4j_tpu[.\s]|"
-        r"from gan_deeplearning4j_tpu[.\s]|from gan_deeplearning4j_tpu import)", re.M)
+        r"from gan_deeplearning4j_tpu[.\s]|from gan_deeplearning4j_tpu import|"
+        r"import scripts|from scripts)", re.M)
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "gan_deeplearning4j_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
