@@ -103,9 +103,9 @@ p. windows bit for bit: for MNIST b200 (fp32, mixed bf16, bf16 storage),
    then a ragged epoch tail (tabular, 640 rows at 256, two epochs) captured
    once and replayed;
 q. uncaptured (the device body launched op by op) against captured, back
-   to back in one call, at the batches of (d), (h) and (l), fp32 and
-   mixed bf16: the first two iterations' seconds (warmup and capture
-   included), host and CUDA-event ms, rows/s, busy share, kernels and
+   to back in one call, at the batches of (d), (h) and (l), fp32 (mixed
+   bf16's captured timing is (l)'s): the first two iterations' seconds
+   (warmup and capture included), host and CUDA-event ms, rows/s, busy share, kernels and
    launch calls (kernel launches, graph launches, copies) per iteration,
    peak memory and each entry's private pool, and (captured) a window of
    16 over one resident batch.
@@ -188,6 +188,38 @@ u. (u1) the conditional MNIST DCGAN (``ExperimentConfig``'s defaults, z 2
    against unconditional at batch 200, the streaming iterator against the
    in-memory one (feeding alone and feeding training), conditional
    ``sample`` ``run`` ms against the unconditional bundle's, buckets 1-128.
+
+Then data-parallel training (``parallel/``), one process per rank over
+``torch.distributed``:
+
+v. (v1) NCCL at world size 1, in this process (a ``FileStore``
+   rendezvous): MNIST b200 under ``pmean``, ``pmean`` + update sharding
+   and ``param_averaging`` (the per-fit averaging body), and ``wgan_gp``
+   b320 under ``pmean``, 4 iterations (2 rounds) each as captured replays,
+   the NCCL collectives inside the graph: replays bit-equal to the same
+   window run eagerly, each key captured once and none by a second
+   window, the single-card experiment from the same init and draws
+   bit-equal (or, where synchronised BatchNorm's reduction takes another
+   route, within 1e-6 on losses and 1e-5 on every leaf), the collectives
+   issued per iteration and the NCCL kernels of one; (v2) the reference's
+   ``local[4]``: four gloo ranks sharing the card
+   (``parallel/launch.py``), ``ParameterAveragingTrainer.fit_rounds`` on
+   the dis graph at 200 a worker and frequency 10, 2 phased averaging
+   iterations, ``pmean`` at a global 800 with and without update sharding,
+   ``wgan_gp`` ``pmean`` at 320, the dis graph's sharded steps both ways;
+   every rank's states bit-identical; ``pmean`` at world 4 against one
+   card at 800 and against four CPU ranks, within (a)'s limits (the
+   classifier's frozen-layer caches apart); WGAN-GP's first critic and
+   generator steps within (e)'s (the round reported); update sharding
+   bit-equal to the replicated run, its reduce-scatter variant to
+   rounding; resident updater bytes per rank; (v3) the four ranks' mesh
+   checkpoint restored at world 1 (NCCL) and 2 (gloo) bit for bit, and two
+   iterations from it equal to two from a whole-file checkpoint of the
+   same state; (v4) timing, recorded: the single card against NCCL world
+   1, captured, MNIST b200 (median of 20 after 5 warm, NCCL's share of the
+   kernel time), and gloo world 4 eager (ms, rows/s over the ranks, the
+   host staging's share). ``--only parallel`` runs (v) alone, as a
+   rehearsal, with no result line.
 
 Every number is printed beside the card's name and power limit. The
 ``kernels`` line lists ``quant_dense`` (the JAX package has no Pallas
@@ -1280,6 +1312,9 @@ def _phase_windows(x, y, directory: str, card: str) -> list:
 
 
 #: (q)'s cases: the batches of (d), (h) and (l)
+#: (q)'s dtypes: fp32 only since (v) joined the run (bf16's captured
+#: timing is (l)'s; the uncaptured bf16 pass cost ~75 s of the 157)
+CAPTURE_TIMING_DTYPES = ("fp32",)
 CAPTURE_TIMING_CASES = (("mnist", 200), ("tabular", 256), ("tabular", 4096), ("cifar10", 64),
                         ("celeba64", 64), ("wgan_gp", 320))
 #: host-side calls that put work on the card, as the profiler names them
@@ -1377,7 +1412,7 @@ def _phase_capture_timing(x, y, card: str) -> list:
     """(q) The iteration uncaptured (the device body launched op by op on
     the card, ``graphs.captured = False``) against captured (one graph
     replay and its copies), in the same call, back to back, at the batches
-    of (d), (h) and (l), fp32 and mixed bf16: the first call's seconds
+    of (d), (h) and (l), in ``CAPTURE_TIMING_DTYPES``: the first call's seconds
     (for captured: warmup and capture of the init and steady entries),
     host and CUDA-event ms, rows/s, busy share, kernels per iteration,
     launch calls per iteration, peak memory, each entry's private pool,
@@ -1385,7 +1420,7 @@ def _phase_capture_timing(x, y, card: str) -> list:
     then profiled) and the host time split into draws, runner and graph
     launch."""
     rows = []
-    for dtype in ("fp32", "bf16"):
+    for dtype in CAPTURE_TIMING_DTYPES:
         dtypes = {"compute_dtype": "bf16"} if dtype == "bf16" else {}
         for name, batch in CAPTURE_TIMING_CASES:
             pair = {}
@@ -2671,15 +2706,499 @@ def _phase_zoo(x, y, directory: str, card: str) -> dict:
     return out
 
 
+# -- (v) parallel training on the card ------------------------------------------------
+
+#: (v1) cases at the reference's batches: (name, family, batch, overrides, window)
+PARALLEL_CASES = (
+    ("pmean", "mnist", 200, {"distributed": "pmean"}, 4),
+    ("pmean_update_sharding", "mnist", 200, {"distributed": "pmean", "update_sharding": True}, 4),
+    ("param_averaging", "mnist", 200, {"distributed": "param_averaging",
+                                       "batch_size_per_worker": 200}, 4),
+    ("wgan_gp_pmean", "wgan_gp", 320, {"distributed": "pmean"}, 2),
+)
+#: (v1)'s limits where the synchronised BatchNorm's reduction (the mesh
+#: mean of the ranks' means and variances) takes another route than the
+#: single path's mean and population variance
+SYNC_BN_LOSS_RTOL, SYNC_BN_LEAF_REL = 1e-6, 1e-5
+#: (v2) the reference's local[4]: ranks sharing the card, rows a rank
+WORKERS, WORKER_ROWS = 4, 200
+#: (v4) warm and timed iterations
+PARALLEL_WARM, PARALLEL_TIMED = 5, 20
+
+
+def _parallel_experiment(family: str, batch: int, mesh=None, **overrides):
+    from gan_deeplearning4j_tpu_torch.harness import make_experiment
+
+    shape = {} if family == "mnist" else FAMILIES[family]
+    return make_experiment(_config(**shape, batch_size_train=batch, **overrides), mesh=mesh)
+
+
+def _parallel_batches(family: str, x, y, batch: int, count: int, seed: int = SEED):
+    """``count`` batches ``(count, batch, F)`` and their one-hot labels."""
+    if family == "mnist":
+        pairs = _mnist_batches(np.tile(x, (-(-count * batch // x.shape[0]), 1)),
+                               np.tile(y, (-(-count * batch // y.shape[0]), 1)), batch, count)
+    else:
+        pairs = _family_batches(_parallel_experiment(family, 10), count, batch, seed)
+    return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
+
+
+def _flat(exp) -> dict:
+    """``flatten_states`` of the experiment, copied to the host (the
+    static buffers change in place later)."""
+    from gan_deeplearning4j_tpu_torch.harness.experiment import flatten_states
+
+    return {k: (v.detach().cpu().clone() if isinstance(v, torch.Tensor) else torch.tensor(v))
+            for k, v in flatten_states(exp.digest_states()).items()}
+
+
+def _not_bit_equal(a: dict, b: dict) -> list:
+    """Keys whose dtype or bits differ between two flat states."""
+    a = {k: torch.as_tensor(v) for k, v in a.items()}
+    b = {k: torch.as_tensor(v) for k, v in b.items()}
+    return sorted(set(a) ^ set(b)) + [k for k in a if k in b and not (
+        a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]))]
+
+
+def _window_losses(out: dict) -> np.ndarray:
+    return torch.stack([out[k] for k in ("d_loss", "g_loss", "cv_loss")], dim=1).cpu().numpy()
+
+
+def _loss_rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    keep = np.isfinite(b)
+    return float(np.max(np.abs(a[keep] - b[keep]) / np.abs(b[keep]))) if keep.any() else 0.0
+
+
+def _device_kernels(fn, runs: int) -> dict:
+    """A profiler window (card only) over ``runs`` calls of ``fn``: kernels
+    per call, NCCL's among them, and NCCL's share of the kernel time."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    total = nccl = 0.0
+    kernels = nccl_kernels = 0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA or ev.name.startswith(("Memcpy", "Memset")):
+            continue
+        span = ev.time_range.end - ev.time_range.start
+        kernels += 1
+        total += span
+        if "nccl" in ev.name.lower():
+            nccl_kernels += 1
+            nccl += span
+    return {"kernels_per_iteration": kernels / runs, "nccl_kernels_per_iteration": nccl_kernels / runs,
+            "nccl_share_of_kernel_time": nccl / total if total else None,
+            "kernel_ms_per_iteration": total / runs / 1e3}
+
+
+def _parallel_case(mesh, name: str, family: str, batch: int, overrides: dict, k: int, x, y,
+                   card: str) -> tuple:
+    """(v1) one case on the NCCL world-1 mesh: a window of ``k`` captured,
+    the same window uncaptured (the eager distributed body), and the
+    single-card experiment (no mesh) from the same init and draws; each key
+    captured once, a second window capturing nothing; the NCCL kernels of
+    an iteration. ``(row, ok)``."""
+    feats, labels = _parallel_batches(family, x, y, batch, 2 * k)
+    exps = {"captured": _parallel_experiment(family, batch, mesh, **overrides),
+            "eager": _parallel_experiment(family, batch, mesh, **overrides),
+            "single": _parallel_experiment(family, batch)}
+    exps["eager"].graphs.captured = False
+    from gan_deeplearning4j_tpu_torch.parallel import collectives
+
+    losses, states = {}, {}
+    for mode, exp in exps.items():
+        collectives.reset_calls()
+        losses[mode] = _window_losses(exp.train_iterations(feats[:k], labels[:k]))
+        states[mode] = _flat(exp)
+        if mode == "eager":  # the body's collectives, issued by every run
+            calls = {kind: n / k for kind, n in collectives.CALLS.items() if n}
+    cap = exps["captured"]
+    counts = dict(cap.graphs.capture_counts)
+    cap.train_iterations(feats[k:], labels[k:])
+    from gan_deeplearning4j_tpu_torch.harness.experiment import state_divergence
+
+    rounding = exps["single"].rounding_only_keys()
+    single_div = state_divergence(states["captured"], states["single"], rounding)
+    row = {
+        "phase": "parallel_nccl_world1", "case": name, "family": family, "batch": batch,
+        **overrides, "window": k, "backend": mesh.backend,
+        "captures": counts, "second_window_captured": cap.graphs.capture_counts != counts,
+        "replays_equal_eager_losses": bool(np.array_equal(losses["captured"], losses["eager"],
+                                                          equal_nan=True)),
+        "replays_equal_eager_leaves_differing": _not_bit_equal(states["captured"], states["eager"])[:5],
+        "single_card_leaves_differing": len(_not_bit_equal(states["captured"], states["single"])),
+        "single_card_losses_bit_equal": bool(np.array_equal(losses["captured"], losses["single"],
+                                                            equal_nan=True)),
+        "single_card_loss_max_rel": _loss_rel(losses["captured"], losses["single"]),
+        "single_card_max_leaf_rel": single_div["max_leaf_rel"],
+        "single_card_max_abs": single_div["max_abs"],
+        "single_card_rounding_only": {"leaves": rounding,
+                                      "max_abs": single_div["rounding_only_max_abs"]},
+        # the route by which world 1 may differ from the single path
+        "route": ("synchronised BatchNorm: the mean of the ranks' torch.mean, and the "
+                  "mean of the ranks' torch.var plus their means' squared distance from it"
+                  if overrides["distributed"] == "pmean" else "none"),
+        "collectives_per_iteration": calls,
+        # NCCL at one rank runs an in-place all-reduce without a kernel
+        "nccl": _device_kernels(lambda: cap.train_iterations(feats[:1], labels[:1]), 1),
+        "entries": cap.graphs.entry_stats(), "card": card,
+    }
+    print(json.dumps(row))
+    bit_equal = row["single_card_leaves_differing"] == 0 and row["single_card_losses_bit_equal"]
+    ok = (row["replays_equal_eager_losses"] and not row["replays_equal_eager_leaves_differing"]
+          and counts and set(counts.values()) == {1} and not row["second_window_captured"]
+          and (bit_equal or (overrides["distributed"] == "pmean"
+                             and row["single_card_loss_max_rel"] <= SYNC_BN_LOSS_RTOL
+                             and row["single_card_max_leaf_rel"] <= SYNC_BN_LEAF_REL))
+          and sum(calls.values()) > 0 and np.isfinite(losses["captured"][:, :2]).all())
+    del exps, cap
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, ok
+
+
+def _iteration_timing(exp, feats, labels) -> dict:
+    """``PARALLEL_WARM`` warm iterations, then the median of
+    ``PARALLEL_TIMED`` by the host clock to the device's end and by CUDA
+    events, and the kernels of 5 more under the profiler."""
+    batch = feats.shape[0] if feats.ndim == 2 else feats.shape[1]
+    for _ in range(PARALLEL_WARM):
+        exp.train_iteration(feats, labels)
+    torch.cuda.synchronize()
+    host, event = [], []
+    for _ in range(PARALLEL_TIMED):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        exp.train_iteration(feats, labels)
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        event.append(start.elapsed_time(end))
+    return {"iterations_timed": PARALLEL_TIMED, "iteration_ms_host_median": statistics.median(host),
+            "iteration_ms_event_median": statistics.median(event),
+            "rows_per_s": batch / statistics.median(host) * 1e3,
+            **_device_kernels(lambda: exp.train_iteration(feats, labels), 5)}
+
+
+def _state_limits(a: dict, b: dict, rounding_only=(), apart=()) -> dict:
+    from gan_deeplearning4j_tpu_torch.harness.experiment import state_divergence
+
+    div = state_divergence(a, b, list(rounding_only) + list(apart))
+    out = {"max_leaf_rel": div["max_leaf_rel"], "max_abs": div["max_abs"],
+           "rounding_only_max_abs": div["rounding_only_max_abs"]}
+    if apart:
+        out["apart"] = {"leaves": len(apart), "max_leaf_rel": state_divergence(
+            {k: a[k] for k in apart}, {k: b[k] for k in apart})["max_leaf_rel"]}
+    return out
+
+
+def _loss_row(losses: dict) -> list:
+    return [float(losses[k]) for k in ("d_loss", "g_loss", "cv_loss")]
+
+
+def _host_flat(flat: dict) -> dict:
+    return {k: v.detach().cpu() if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+            for k, v in flat.items()}
+
+
+def _ranks_differing(ranks: list, key: str, field: str = "states") -> list:
+    """Keys on which some rank's ``field`` of scenario ``key`` differs from
+    rank 0's, bit for bit."""
+    from gan_deeplearning4j_tpu_torch.harness.experiment import flatten_states
+
+    def flat(r):
+        value = r[key][field]
+        return _host_flat(value if field == "states" else flatten_states({"s": value}))
+
+    first = flat(ranks[0])
+    return sorted({k for r in ranks[1:] for k in _not_bit_equal(flat(r), first)})[:5]
+
+
+def _first_steps(rank: dict, losses: dict, grads: dict) -> dict:
+    """A rank's first-step losses and mesh-mean gradients against others:
+    the worst loss relative error and the worst gradient leaf (normwise)."""
+    from gan_deeplearning4j_tpu_torch.harness.experiment import flatten_states, state_divergence
+
+    return {"loss_max_rel": max(abs(rank["losses"][k] - losses[k]) / abs(losses[k]) for k in losses),
+            "max_leaf_rel": state_divergence(_host_flat(flatten_states(rank["grads"])),
+                                             _host_flat(flatten_states(grads)))["max_leaf_rel"]}
+
+
+def _phase_parallel(x, y, directory: str, card: str) -> dict:
+    """(v) Parallel training on the card: (v1) NCCL at world size 1,
+    captured; (v2) the reference's local[4], four gloo ranks sharing the
+    card; (v3) mesh checkpoints; (v4) timing, recorded."""
+    import torch.distributed as dist
+
+    from gan_deeplearning4j_tpu_torch.runtime.environment import initialize_distributed, make_mesh
+
+    # (v1) one in-process NCCL rank on cuda:0, rendezvous by a FileStore;
+    # the group is destroyed before the directory that holds its store
+    initialize_distributed(rank=0, world_size=1, init_file=os.path.join(directory, "pg_store"),
+                           backend="nccl")
+    try:
+        return _parallel_phases(make_mesh(use_accelerator=True), x, y, directory, card)
+    finally:
+        dist.destroy_process_group()
+
+
+def _parallel_phases(mesh, x, y, directory: str, card: str) -> dict:
+    from gan_deeplearning4j_tpu_torch.parallel import drill
+    from gan_deeplearning4j_tpu_torch.parallel.launch import spawn
+
+    out, failed = {}, []
+    t0 = time.perf_counter()
+    out["nccl_world1"] = []
+    for name, family, batch, overrides, k in PARALLEL_CASES:
+        row, ok = _parallel_case(mesh, name, family, batch, overrides, k, x, y, card)
+        out["nccl_world1"].append(row)
+        if not ok:
+            failed.append(f"v1 {name}")
+    out["seconds"] = {"v1": time.perf_counter() - t0}
+
+    # (v2) four gloo ranks sharing the card, every scenario in one spawn;
+    # the same pmean and WGAN-GP runs on four CPU ranks; one card alone
+    t0 = time.perf_counter()
+    gen_dir = os.path.join(directory, "parallel_generation")
+    os.makedirs(gen_dir, exist_ok=True)
+    rows = WORKERS * WORKER_ROWS
+    fx, fy = _parallel_batches("mnist", x, y, rows, 3)
+    wx, _ = _parallel_batches("wgan_gp", x, y, 320, 1)
+    dis = _parallel_experiment("mnist", 8).dis
+    dis_params = {l: {n: t.cpu().numpy() for n, t in lp.items()}
+                  for l, lp in dis.init(SEED, device="cpu").items()}
+    freq = 10
+    rounds_x = np.tile(x, (-(-WORKERS * freq * WORKER_ROWS // x.shape[0]), 1))[
+        :WORKERS * freq * WORKER_ROWS][None]
+    soft = np.full(rounds_x.shape[:2] + (1,), 0.95, np.float32)
+    mnist = {"save_models": False, "batch_size_train": rows}
+    wgan = {**FAMILIES["wgan_gp"], "save_models": False, "batch_size_train": 320,
+            "distributed": "pmean"}
+    scen = {
+        "rounds": ("averaging_rounds", dict(topology=dis.to_dict(), params=dis_params,
+                                            rounds_x=rounds_x, rounds_y=soft, freq=freq,
+                                            batch=WORKER_ROWS, use_accelerator=True)),
+        "averaging": ("experiment_run", dict(
+            config={**mnist, "distributed": "param_averaging",
+                    "batch_size_per_worker": WORKER_ROWS, "averaging_frequency": freq},
+            states=None, batches=fx[:2], labels=fy[:2])),
+        "pmean": ("experiment_run", dict(config={**mnist, "distributed": "pmean"}, states=None,
+                                         batches=fx[:1], labels=fy[:1], shards_dir=gen_dir,
+                                         warm=2, timed=5)),
+        "pmean_update_sharding": ("experiment_run", dict(
+            config={**mnist, "distributed": "pmean", "update_sharding": True}, states=None,
+            batches=fx[:1], labels=fy[:1])),
+        "wgan_gp": ("experiment_run", dict(config=wgan, states=None, batches=wx[:1])),
+        "wgan_first_steps": ("wgan_first_steps", dict(config=wgan, batch=wx[0])),
+        "dis_steps": ("graph_steps", dict(topology=dis.to_dict(), params=dis_params, features=fx[0],
+                                          labels=soft[0, :rows], steps=3, shard_updates=True,
+                                          use_accelerator=True)),
+    }
+    card_ranks = spawn(drill.run_all, WORKERS, (scen,), backend="gloo", use_accelerator=True,
+                       timeout=600, threads=2)
+    cpu_scen = {
+        "pmean": ("experiment_run", dict(config={**mnist, "distributed": "pmean",
+                                                 "use_accelerator": False},
+                                         states=None, batches=fx[:1], labels=fy[:1])),
+        "wgan_gp": ("experiment_run", dict(config={**wgan, "use_accelerator": False}, states=None,
+                                           batches=wx[:1])),
+        "wgan_first_steps": ("wgan_first_steps", dict(config={**wgan, "use_accelerator": False},
+                                                      batch=wx[0])),
+    }
+    cpu_ranks = spawn(drill.run_all, WORKERS, (cpu_scen,), backend="gloo", use_accelerator=False,
+                      timeout=600, threads=2)
+    out["seconds"]["v2_spawns"] = time.perf_counter() - t0
+    single = _parallel_experiment("mnist", rows)
+    single_losses = _loss_row(single.train_iteration(fx[0], fy[0]))
+    single_flat = _flat(single)
+    single_wgan = _parallel_experiment("wgan_gp", 320)
+    first_losses, first_grads = _wgan_first_step_grads(single_wgan, wx[0])
+    single_wgan_losses = _loss_row(single_wgan.train_iteration(wx[0], None))
+    single_wgan_flat = _flat(single_wgan)
+    r0, c0 = card_ranks[0], cpu_ranks[0]
+    pmean_card = _host_flat(r0["pmean"]["states"])
+    apart = _frozen_updater_keys(single, pmean_card)
+    rounding = single_wgan.rounding_only_keys()
+
+    def compare(losses_a, flat_a, losses_b, flat_b, rounding_only=(), apart_keys=()):
+        return {"loss_max_rel": _loss_rel(losses_a, losses_b),
+                **_state_limits(flat_a, flat_b, rounding_only, apart_keys)}
+
+    checks = {
+        "ranks_differing": {key: _ranks_differing(card_ranks, key) for key in
+                            ("averaging", "pmean", "pmean_update_sharding", "wgan_gp")},
+        "rounds_ranks_differing": _ranks_differing(card_ranks, "rounds", "state"),
+        "pmean_world4_vs_one_card": compare(_loss_row(r0["pmean"]["losses"][0]), pmean_card,
+                                            single_losses, single_flat, (), apart),
+        "pmean_world4_card_vs_cpu": compare(_loss_row(r0["pmean"]["losses"][0]), pmean_card,
+                                            _loss_row(c0["pmean"]["losses"][0]),
+                                            _host_flat(c0["pmean"]["states"]), (), apart),
+        # (e)'s limits: the first critic step and a generator step from one
+        # state; the round (five Adam steps at beta1 = 0) is reported
+        "wgan_first_steps_world4_vs_one_card": _first_steps(r0["wgan_first_steps"], first_losses,
+                                                            first_grads),
+        "wgan_first_steps_world4_card_vs_cpu": _first_steps(
+            r0["wgan_first_steps"], c0["wgan_first_steps"]["losses"],
+            c0["wgan_first_steps"]["grads"]),
+        "wgan_world4_vs_one_card": compare(
+            _loss_row(r0["wgan_gp"]["losses"][0])[:2], _host_flat(r0["wgan_gp"]["states"]),
+            single_wgan_losses[:2], single_wgan_flat, rounding),
+        "wgan_world4_card_vs_cpu": compare(
+            _loss_row(r0["wgan_gp"]["losses"][0])[:2], _host_flat(r0["wgan_gp"]["states"]),
+            _loss_row(c0["wgan_gp"]["losses"][0])[:2], _host_flat(c0["wgan_gp"]["states"]), rounding),
+        "update_sharding_vs_replicated_leaves_differing": _not_bit_equal(
+            _host_flat(r0["pmean_update_sharding"]["states"]), pmean_card)[:5],
+        "update_sharding_losses_bit_equal": _loss_row(r0["pmean_update_sharding"]["losses"][0])
+        == _loss_row(r0["pmean"]["losses"][0]),
+    }
+    from gan_deeplearning4j_tpu_torch.harness.experiment import flatten_states, state_divergence
+
+    steps = r0["dis_steps"]
+    checks["dis_steps"] = {
+        "exact_sharded_leaves_differing": _not_bit_equal(
+            _host_flat(flatten_states({"s": steps["sharded"]["state"]})),
+            _host_flat(flatten_states({"s": steps["pmean"]["state"]})))[:5],
+        # gloo's reduce-scatter may add the ranks' sums in another order
+        # than its all-reduce (ring chunks differ with the buffer's layout)
+        "reduce_scatter_vs_replicated_max_leaf_rel": state_divergence(
+            _host_flat(flatten_states({"s": steps["sharded_reduce_scatter"]["state"]})),
+            _host_flat(flatten_states({"s": steps["pmean"]["state"]})))["max_leaf_rel"],
+        "reduce_scatter_loss_max_rel": _loss_rel(steps["sharded_reduce_scatter"]["losses"],
+                                                 steps["pmean"]["losses"]),
+        "resident_updater_bytes_per_rank": {m: steps[m]["resident_bytes"] for m in
+                                            ("pmean", "sharded", "sharded_reduce_scatter")},
+    }
+    checks["resident_updater_bytes_per_rank"] = {
+        "replicated": r0["pmean"]["resident_bytes"],
+        "update_sharding": [r["pmean_update_sharding"]["resident_bytes"] for r in card_ranks]}
+    checks["averaging_losses"] = r0["averaging"]["losses"]
+    checks["rounds_losses"] = np.asarray(r0["rounds"]["losses"]).tolist()
+    checks["no_child_loads_jax"] = not any(s["jax_loaded"] for r in card_ranks + cpu_ranks
+                                           for s in r.values())
+    row = {"phase": "parallel_gloo_world4", "ranks": WORKERS, "rows_per_rank": WORKER_ROWS,
+           "backend": "gloo", "device": "cuda:0 (shared)", **checks, "card": card}
+    print(json.dumps(row, default=float))
+    out["gloo_world4"] = row
+    limits_ok = all(
+        checks[key]["loss_max_rel"] <= ITER_LOSS_RTOL and checks[key]["max_leaf_rel"] <= ITER_LEAF_REL
+        for key in ("pmean_world4_vs_one_card", "pmean_world4_card_vs_cpu",
+                    "wgan_first_steps_world4_vs_one_card", "wgan_first_steps_world4_card_vs_cpu"))
+    if not (limits_ok and not any(checks["ranks_differing"].values())
+            and not checks["rounds_ranks_differing"]
+            and not checks["update_sharding_vs_replicated_leaves_differing"]
+            and checks["update_sharding_losses_bit_equal"]
+            and not checks["dis_steps"]["exact_sharded_leaves_differing"]
+            and max(checks["resident_updater_bytes_per_rank"]["update_sharding"])
+            <= checks["resident_updater_bytes_per_rank"]["replicated"] * 1.35 / WORKERS
+            and checks["no_child_loads_jax"]):
+        failed.append("v2")
+
+    # (v3) the four ranks' mesh checkpoint, restored at world 1 (NCCL, this
+    # process) and world 2 (gloo on the card); two iterations from it
+    # against two from a whole-file checkpoint of the same state
+    t0 = time.perf_counter()
+    pmean = {**mnist, "distributed": "pmean"}
+    from_shards = _parallel_experiment("mnist", rows, mesh, distributed="pmean")
+    from_shards.load_models(gen_dir)
+    restored = _flat(from_shards)
+    whole_dir = os.path.join(directory, "parallel_whole")
+    from_shards.save_models(whole_dir)
+    from_whole = _parallel_experiment("mnist", rows, mesh, distributed="pmean")
+    from_whole.load_models(whole_dir)
+    two = []
+    for exp in (from_shards, from_whole):
+        two.append([_loss_row(exp.train_iteration(fx[1 + i], fy[1 + i])) for i in range(2)])
+    world2 = spawn(drill.load_generation, 2, (pmean | {"use_accelerator": True}, gen_dir),
+                   backend="gloo", use_accelerator=True, timeout=300, threads=2)
+    row = {"phase": "parallel_checkpoints", "shards": sorted(os.listdir(gen_dir)),
+           "world1_nccl_leaves_differing": _not_bit_equal(restored, pmean_card)[:5],
+           "world2_gloo_leaves_differing": sorted({k for r in world2 for k in _not_bit_equal(
+               _host_flat(r["states"]), pmean_card)})[:5],
+           "two_more_from_shards_equal_from_whole_file_losses": two[0] == two[1],
+           "two_more_leaves_differing": _not_bit_equal(_flat(from_shards), _flat(from_whole))[:5],
+           "card": card}
+    print(json.dumps(row))
+    out["checkpoints"] = row
+    out["seconds"]["v3"] = time.perf_counter() - t0
+    if (row["world1_nccl_leaves_differing"] or row["world2_gloo_leaves_differing"]
+            or not row["two_more_from_shards_equal_from_whole_file_losses"]
+            or row["two_more_leaves_differing"] or len(row["shards"]) != WORKERS):
+        failed.append("v3")
+    del from_shards, from_whole, single, single_wgan
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (v4) timing, recorded: MNIST at 200 a rank, the single card captured
+    # against NCCL world 1 captured; gloo world 4 (eager) from (v2)
+    t0 = time.perf_counter()
+    tx, ty = fx[0][:WORKER_ROWS], fy[0][:WORKER_ROWS]
+    timing = {}
+    for label, exp in (("single_card_captured", _parallel_experiment("mnist", WORKER_ROWS)),
+                       ("nccl_world1_captured", _parallel_experiment("mnist", WORKER_ROWS, mesh,
+                                                                     distributed="pmean"))):
+        timing[label] = _iteration_timing(exp, tx, ty)
+        del exp
+        gc.collect()
+        torch.cuda.empty_cache()
+    per_rank = [statistics.median(r["pmean"]["iteration_s"]) * 1e3 for r in card_ranks]
+    staging = [r["pmean"]["staging"] for r in card_ranks]
+    timing["gloo_world4_eager"] = {
+        "iteration_ms_median_by_rank": per_rank,
+        "rows_per_s_over_four_ranks": rows / max(per_rank) * 1e3,
+        "host_staging_share_by_rank": [s["seconds"] / sum(r["pmean"]["iteration_s"])
+                                       for s, r in zip(staging, card_ranks)],
+        "host_staging_calls_per_iteration": staging[0]["calls"] / len(r0["pmean"]["iteration_s"]),
+        "host_staging_mib_per_iteration": staging[0]["bytes"] / len(r0["pmean"]["iteration_s"]) / 2**20,
+    }
+    row = {"phase": "parallel_timing", **timing, "card": card}
+    print(json.dumps(row))
+    out["timing"] = row
+    out["seconds"]["v4"] = time.perf_counter() - t0
+    if failed:
+        raise AssertionError(f"(v) failed: {failed}")
+    return out
+
+
 def _post_path(base: str, path: str):
     req = urllib.request.Request(f"{base}{path}", data=b"{}", headers={"Content-Type": "application/json"})
     with urllib.request.urlopen(req, timeout=120) as r:
         return r.status, json.loads(r.read())
 
 
+#: the training phases ``--only`` can run by themselves: (x, y, directory, card)
+_TRAINING_ONLY = {"windows": lambda *a: _phase_windows(*a),
+                  "capture_timing": lambda x, y, d, card: _phase_capture_timing(x, y, card),
+                  "zoo": lambda *a: _phase_zoo(*a),
+                  "parallel": lambda *a: _phase_parallel(*a)}
+
+
+def _run_only(names, card: str) -> int:
+    """A rehearsal of some training phases on the card: each phase's rows,
+    and their seconds; no result line."""
+    failed = []
+    with tempfile.TemporaryDirectory() as directory:
+        x, y, _, _ = _training_data(os.path.join(directory, "data"))
+        for name in names:
+            t0 = time.perf_counter()
+            try:
+                _TRAINING_ONLY[name](x, y, directory, card)
+            except Exception:
+                traceback.print_exc()
+                failed.append(name)
+            print(json.dumps({"phase": "phase_seconds", name: time.perf_counter() - t0, "card": card}))
+    if failed:
+        print(f"chip_smoke: phases failed: {failed}", file=sys.stderr)
+    return 1 if failed else 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--json", default=None, help="also write every measurement to this file")
+    parser.add_argument("--only", nargs="+", default=None, choices=sorted(_TRAINING_ONLY),
+                        help="rehearse only these training phases (prints no result line)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2692,6 +3211,8 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     card = _card()
     print(f"card: {card}")
+    if args.only:
+        return _run_only(args.only, card)
     # the port's hand-written kernel, built from the checkout's source
     from gan_deeplearning4j_tpu_torch.ops import _native
 
@@ -2756,7 +3277,8 @@ def main(argv=None) -> int:
                           lambda: _phase_serving_captured(directory, int8_dir, directory, card)),
                          ("mux", lambda: _phase_mux(directory, int8_dir, directory, card)),
                          ("reload", lambda: _phase_reload(directory, directory, card)),
-                         ("zoo", lambda: _phase_zoo(x, y, directory, card))):
+                         ("zoo", lambda: _phase_zoo(x, y, directory, card)),
+                         ("parallel", lambda: _phase_parallel(x, y, directory, card))):
             t0 = time.perf_counter()
             try:
                 families[key] = run()
@@ -2765,7 +3287,8 @@ def main(argv=None) -> int:
                 failed.append(key)
             seconds[key] = time.perf_counter() - t0
     if failed:
-        print(f"chip_smoke: family / bf16 / window / int8 / serving / zoo phases failed: {failed}",
+        print(f"chip_smoke: family / bf16 / window / int8 / serving / zoo / parallel phases "
+              f"failed: {failed}",
               file=sys.stderr)
         return 1
     top = engine.buckets[-1]

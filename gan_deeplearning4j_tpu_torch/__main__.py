@@ -12,7 +12,13 @@ rows, e.g. ``python -m gan_deeplearning4j_tpu_torch --conditioning class
 --num-iterations 10``.
 
 It runs on the card (``cuda:0``) and raises without CUDA unless
-``--use-accelerator false`` asks for the CPU. Data: reference-format CSVs
+``--use-accelerator false`` asks for the CPU. ``--distributed pmean`` or
+``param_averaging`` trains data-parallel over every rank of the process
+group: start it with ``torchrun --nproc-per-node N -m
+gan_deeplearning4j_tpu_torch ...`` or ``python -m
+gan_deeplearning4j_tpu_torch.parallel.launch --nproc N -- ...`` (without
+either, a world of one). Every rank reads the same global batches; rank 0
+prepares the data and writes the outputs. Data: reference-format CSVs
 under ``--data-dir`` are used if present; otherwise, for ``mnist``,
 ``prepare_mnist`` writes them there (real MNIST on disk > scikit-learn
 digits > synthetic), and for the other families the family's synthetic
@@ -83,13 +89,17 @@ def main(argv=None) -> int:
 
     train_csv = os.path.join(config.data_dir, f"{config.file_prefix}_train.csv")
     test_csv = os.path.join(config.data_dir, f"{config.file_prefix}_test.csv")
-    if not (os.path.exists(train_csv) and os.path.exists(test_csv)):
+    mesh = experiment.mesh
+    lead = mesh is None or mesh.rank == 0
+    if lead and not (os.path.exists(train_csv) and os.path.exists(test_csv)):
         if config.model_family == "mnist":
             print(f"No CSVs under {config.data_dir!r}; preparing MNIST data there.")
             prepare_mnist(config.data_dir, prefix=config.file_prefix)
         else:
             print(f"No CSVs under {config.data_dir!r}; generating synthetic data there.")
             _prepare_synthetic(config, experiment)
+    if mesh is not None:
+        mesh.barrier()  # the data is in place for every rank
     train_it = _csv_iterator(train_csv, config.batch_size_train, config.num_features, config.num_classes)
     test_it = _csv_iterator(test_csv, config.batch_size_pred, config.num_features, config.num_classes)
     if config.resume:
@@ -100,7 +110,7 @@ def main(argv=None) -> int:
 
     # offline eval, as the reference notebook does it: accuracy of the
     # latest predictions export (mnist) and the latent-manifold PNG
-    if result["iterations"] > 0:
+    if result["iterations"] > 0 and lead:
         from gan_deeplearning4j_tpu_torch.eval import accuracy_from_csvs, render_manifold
 
         preds = None

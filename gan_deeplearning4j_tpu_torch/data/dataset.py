@@ -1,6 +1,11 @@
 """DataSet — the (features, labels) batch value type, counterpart of
 ``gan_deeplearning4j_tpu/data/dataset.py``. A batch holds host numpy
-arrays, or torch tensors once ``to_device`` has placed it."""
+arrays, or torch tensors once ``to_device`` has placed it.
+
+On a data mesh (``runtime/environment.py::DataMesh``) a global batch is
+split by rows, the JAX package's ``PartitionSpec("data")``: rank r holds
+the r-th contiguous block (``shard_batch`` first truncates the batch to a
+multiple of the mesh size)."""
 
 from __future__ import annotations
 
@@ -8,8 +13,6 @@ import numpy as np
 import torch
 
 from gan_deeplearning4j_tpu_torch.runtime.device import DeviceLike, resolve_device
-
-_PARALLEL_WAITS = "ROADMAP.md queue 1, 'Parallel training'"
 
 
 class DataSet:
@@ -30,15 +33,33 @@ class DataSet:
         l = tuple(self.labels.shape) if self.labels is not None else None
         return f"DataSet(features={f}, labels={l})"
 
+    def shard_batch(self, n: int) -> "DataSet":
+        """The batch truncated to a multiple of ``n`` (the mesh size)."""
+        b = self.num_examples()
+        usable = (b // n) * n
+        if usable == 0:
+            raise ValueError(f"batch of {b} cannot be split over {n} shards")
+        if usable == b:
+            return self
+        return DataSet(self.features[:usable], None if self.labels is None else self.labels[:usable])
+
+    def rank_rows(self, mesh) -> "DataSet":
+        """``mesh``'s rank's contiguous rows of this global batch (after
+        :meth:`shard_batch`)."""
+        batch = self.shard_batch(mesh.size)
+        rows = mesh.rows(batch.num_examples())
+        return DataSet(batch.features[rows], None if batch.labels is None else batch.labels[rows])
+
     def to_device(self, device: DeviceLike = None, non_blocking: bool = True,
-                  sharding=None) -> "DataSet":
+                  mesh=None) -> "DataSet":
         """The batch as tensors on ``device`` (the card unless the caller
         asks for another). Host rows bound for the card go through pinned
         memory, so with ``non_blocking`` the copy is asynchronous on the
-        current stream. ``sharding`` (the JAX package's mesh placement)
-        raises."""
-        if sharding is not None:
-            raise NotImplementedError(f"sharded batches are not ported yet: {_PARALLEL_WAITS}")
+        current stream. With a ``mesh`` only its rank's rows are placed, on
+        the mesh's device unless ``device`` names one."""
+        if mesh is not None:
+            return self.rank_rows(mesh).to_device(mesh.device if device is None else device,
+                                                  non_blocking)
         dev = resolve_device(device)
 
         def put(x):

@@ -19,6 +19,12 @@ Two iterators yield tensors on the device:
 Shuffled orders are drawn on the host, ``np.random.default_rng(seed +
 epoch).permutation(n)``, so every iterator here visits the rows in the
 JAX package's order.
+
+On a data mesh (``mesh=``) both put only this rank's contiguous rows of
+each global batch on its device (the ``PartitionSpec("data")`` row split):
+their batches and windows are ``B / N`` rows, and ``GanExperiment.run``
+reads them as local. The resident iterator keeps the set on the host and
+places the rank's rows of the epoch's batches once per epoch.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from gan_deeplearning4j_tpu_torch.data.dataset import _PARALLEL_WAITS, DataSet, one_hot_np
+from gan_deeplearning4j_tpu_torch.data.dataset import DataSet, one_hot_np
 from gan_deeplearning4j_tpu_torch.data.records import RecordReader
 from gan_deeplearning4j_tpu_torch.runtime.device import DeviceLike, resolve_device
 
@@ -137,9 +143,11 @@ class DeviceResidentIterator(DataSetIterator):
 
     def __init__(self, features, labels=None, batch_size: int = 128, shuffle: bool = False,
                  seed: int = 666, drop_remainder: bool = False, device: DeviceLike = None,
-                 sharding=None):
-        if sharding is not None:
-            raise NotImplementedError(f"sharded resident sets are not ported yet: {_PARALLEL_WAITS}")
+                 mesh=None):
+        self.mesh = mesh
+        if mesh is not None:
+            self._init_mesh(features, labels, batch_size, shuffle, seed, drop_remainder)
+            return
         self.device = resolve_device(device)
 
         def put(x):
@@ -156,6 +164,56 @@ class DeviceResidentIterator(DataSetIterator):
         self._epoch = 0
         self._order = self._make_order()
         self._cursor = 0
+
+    # -- on a mesh: this rank's rows, placed once per epoch -------------------
+    def _init_mesh(self, features, labels, batch_size, shuffle, seed, drop_remainder):
+        self.device = self.mesh.device
+        self._host = (np.asarray(features, dtype=np.float32),
+                      None if labels is None else np.asarray(labels, dtype=np.float32))
+        if self._host[1] is not None and self._host[1].shape[0] != self._host[0].shape[0]:
+            raise ValueError("features/labels row mismatch")
+        self.batch_size = int(batch_size)
+        if self.batch_size % self.mesh.size:
+            raise ValueError(f"batch {self.batch_size} does not split over {self.mesh.size} ranks")
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_remainder = drop_remainder
+        self._epoch = 0
+        self._place_epoch()
+
+    def _place_epoch(self) -> None:
+        """This rank's rows of every batch of the epoch, on the device:
+        ``(nb, B/N, …)`` full batches and the ragged tail's rows."""
+        n = self._host[0].shape[0]
+        order = (np.random.default_rng(self.seed + self._epoch).permutation(n) if self.shuffle
+                 else np.arange(n))
+        b, size = self.batch_size, self.mesh.size
+        nb = n // b
+        full = order[: nb * b].reshape(nb, b)[:, self.mesh.rows(b)]
+        tail = order[nb * b:]
+        usable = tail.shape[0] // size * size
+        tail = tail[:usable][self.mesh.rows(usable)] if usable and not self.drop_remainder \
+            else tail[:0]
+
+        def put(x, idx):
+            return None if x is None else torch.from_numpy(x[idx]).to(self.device)
+
+        self._windowed = (nb, put(self._host[0], full), put(self._host[1], full))
+        self._tail = (put(self._host[0], tail), put(self._host[1], tail))
+        self._at = 0  # batches served this epoch
+
+    def _mesh_has_next(self) -> bool:
+        nb = self._windowed[0]
+        return self._at < nb or (self._at == nb and self._tail[0].shape[0] > 0)
+
+    def _mesh_next(self) -> DataSet:
+        if not self._mesh_has_next():
+            raise StopIteration
+        nb, wf, wl = self._windowed
+        at, self._at = self._at, self._at + 1
+        if at < nb:
+            return DataSet(wf[at], None if wl is None else wl[at])
+        return DataSet(*self._tail)
 
     def _make_order(self) -> Optional[torch.Tensor]:
         self._windowed = None  # the epoch's (nb, B, …) views, made on first use
@@ -187,24 +245,35 @@ class DeviceResidentIterator(DataSetIterator):
         set of window sizes. None when the cursor is not on a batch
         boundary or no full batch is left (the caller then takes
         ``next()``)."""
-        if k < 1 or self._cursor % self.batch_size != 0:
-            return None
-        nb, wf, wl = self._window_arrays()
-        at = self._cursor // self.batch_size
+        if self.mesh is not None:
+            nb, wf, wl = self._windowed
+            at = self._at
+        else:
+            if k < 1 or self._cursor % self.batch_size != 0:
+                return None
+            nb, wf, wl = self._window_arrays()
+            at = self._cursor // self.batch_size
         avail = min(k, nb - at)
         if avail < 1:
             return None
         take = 1 << (avail.bit_length() - 1)
-        self._cursor += take * self.batch_size
+        if self.mesh is not None:
+            self._at += take
+        else:
+            self._cursor += take * self.batch_size
         return wf[at: at + take], None if wl is None else wl[at: at + take]
 
     def has_next(self) -> bool:
+        if self.mesh is not None:
+            return self._mesh_has_next()
         remaining = self.features.shape[0] - self._cursor
         if self.drop_remainder:
             return remaining >= self.batch_size
         return remaining > 0
 
     def next(self) -> DataSet:
+        if self.mesh is not None:
+            return self._mesh_next()
         if not self.has_next():
             raise StopIteration
         lo = self._cursor
@@ -219,6 +288,9 @@ class DeviceResidentIterator(DataSetIterator):
 
     def reset(self) -> None:
         self._epoch += 1
+        if self.mesh is not None:
+            self._place_epoch()
+            return
         self._order = self._make_order()
         self._cursor = 0
 
@@ -234,14 +306,13 @@ class DevicePrefetchIterator(DataSetIterator):
     their memory while the consumer still reads it."""
 
     def __init__(self, inner: DataSetIterator, depth: int = 2, device: DeviceLike = None,
-                 transform=None, sharding=None):
+                 transform=None, mesh=None):
         if depth < 1:
             raise ValueError("prefetch depth must be >= 1")
-        if sharding is not None:
-            raise NotImplementedError(f"sharded prefetch is not ported yet: {_PARALLEL_WAITS}")
         self.inner = inner
         self.depth = depth
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None and device is None else resolve_device(device)
         self.transform = transform
         self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self._queue: deque = deque()  # (batch on the device, its copy's event or None)
@@ -251,6 +322,8 @@ class DevicePrefetchIterator(DataSetIterator):
             batch = self.inner.next()
             if self.transform is not None:
                 batch = self.transform(batch)
+            if self.mesh is not None:
+                batch = batch.rank_rows(self.mesh)
             if self._stream is None:
                 self._queue.append((batch.to_device(self.device), None))
                 continue

@@ -4,10 +4,12 @@ hyperparameter block as one typed config, field for field with the same
 defaults, overridable from JSON and argparse.
 
 ``validate()`` makes the JAX package's checks, in its order and with its
-messages (the WGAN-GP family's and class conditioning's included), and
-then refuses, with ``NotImplementedError`` naming the ROADMAP.md item that
-brings it, what the port does not run yet: ``distributed != "none"`` and
-``update_sharding`` ('Parallel training'). ``conditioning="class"`` widens
+messages (the WGAN-GP family's, class conditioning's and the distributed
+modes' included). ``distributed="pmean"`` (per-step gradient sync,
+optionally with ``update_sharding``) and ``"param_averaging"`` run over a
+``DataMesh`` (``runtime/environment.py``): the backend and the world size
+belong to the mesh the launcher builds, not to this config.
+``conditioning="class"`` widens
 the generator's input to ``[z | one-hot(class)]`` (``harness/
 experiment.py``); the discriminator and the classifier stay
 unconditional. ``prefetch > 0``
@@ -135,7 +137,9 @@ class ExperimentConfig:
         if self.update_sharding and self.distributed != "pmean":
             raise ValueError(
                 "update_sharding requires distributed='pmean' (the per-step "
-                "gradient-sync mesh path)"
+                "gradient-sync mesh path); param_averaging workers hold "
+                "divergent local updater state and 'none' has no mesh axis "
+                "to shard over"
             )
         if self.dis_lr_decay_every < 0:
             raise ValueError("dis_lr_decay_every must be >= 0 (0 = off)")
@@ -192,11 +196,6 @@ class ExperimentConfig:
                     "families; the WGAN-GP trainer keeps the replicated "
                     "update (its critic-round program is its own)"
                 )
-        if self.distributed != "none" or self.update_sharding:
-            raise NotImplementedError(
-                f"distributed={self.distributed!r} / update_sharding is not ported "
-                f"yet: ROADMAP.md queue 1, 'Parallel training'"
-            )
         return self
 
     # -- overrides ------------------------------------------------------------

@@ -69,9 +69,41 @@ init and when a checkpoint is loaded (``_cast_state``); int leaves
 are float32 from the first bias or BatchNorm on, and only params, updater
 state and param gradients are bf16.
 
-Not ported yet, each raising with its ROADMAP.md item: meshes and the
-parameter-averaging path ('Parallel training'), mesh-sharded checkpoints
-and store publishing ('The operations planes').
+Data parallel (``config.distributed``, over a ``DataMesh`` from
+``runtime/environment.py``; one process per rank; without a mesh argument
+the experiment makes one from the environment, a world of one where
+torchrun set none):
+
+- ``"pmean"``: the device body above with ``GraphTrainer(mesh=...)``:
+  each rank trains on its contiguous rows of every global batch (the
+  ``PartitionSpec("data")`` split), BatchNorm statistics over the global
+  batch, the gradients and losses averaged over the mesh every step.
+  Every rank draws the global z and label noise from the same generator
+  and takes its rows, so world N computes what one process computes at
+  the global batch. ``update_sharding`` swaps the optimizer for
+  ``parallel/update_sharding.py``'s (the updater state is held as this
+  rank's rows; ``digest_states``, ``save_models`` and ``_flat_state``
+  gather the tree form, a collective every rank makes);
+- ``"param_averaging"``: ``train_iteration`` is the JAX package's phased
+  iteration (each fit through ``ParameterAveragingTrainer.fit``, the
+  discriminator's real and fake rows as one 2-minibatch fit, every rank
+  holding the global rows and fitting its worker's block), and a window
+  (``train_iterations``, ``run()``) runs the per-fit averaging body
+  (``_avg_body``, the JAX ``_build_fused_avg_body``): one local step per
+  fit on this worker's rows (two for the discriminator), then params and
+  updater state averaged over the mesh. Worker draws are this worker's
+  rows of the global draws (the JAX package folds the worker index into
+  its key: a different stream of the same law);
+- a NCCL mesh captures the body, its collectives included, as a CUDA
+  graph; a gloo mesh cannot (gloo is a host library), so its body runs
+  uncaptured on the same buffers (``harness/graphs.py``);
+- checkpoints, exports and metrics are written by rank 0;
+  ``save_model_shard(directory, k, M)`` writes shard k of a mesh
+  checkpoint, and ``load_models`` restores a directory of such shards from
+  any M at any world size.
+
+Not ported yet, raising with its ROADMAP.md item: publishing into a
+``CheckpointStore`` ('The operations planes').
 """
 
 from __future__ import annotations
@@ -81,6 +113,7 @@ import logging
 import os
 import re
 import time
+import types
 from collections import deque
 from typing import Dict, List, Optional, Sequence
 
@@ -88,9 +121,10 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from gan_deeplearning4j_tpu_torch.data import DevicePrefetchIterator, write_csv
+from gan_deeplearning4j_tpu_torch.data import DataSet, DevicePrefetchIterator, write_csv
 from gan_deeplearning4j_tpu_torch.harness.config import ExperimentConfig
 from gan_deeplearning4j_tpu_torch.harness.graphs import CapturedIterations
+from gan_deeplearning4j_tpu_torch.interop import params_from_numpy
 from gan_deeplearning4j_tpu_torch.models import registry
 from gan_deeplearning4j_tpu_torch.nn import ComputationGraph
 from gan_deeplearning4j_tpu_torch.nn.layers import (
@@ -99,7 +133,9 @@ from gan_deeplearning4j_tpu_torch.nn.layers import (
     Deconvolution2D,
     DenseLayer,
 )
-from gan_deeplearning4j_tpu_torch.parallel import GraphTrainer, TrainState
+from gan_deeplearning4j_tpu_torch.parallel import GraphTrainer, ParameterAveragingTrainer, TrainState
+from gan_deeplearning4j_tpu_torch.parallel import collectives
+from gan_deeplearning4j_tpu_torch.parallel.trainer import check_mesh
 from gan_deeplearning4j_tpu_torch.quant.variants import write_bundle_manifest
 from gan_deeplearning4j_tpu_torch.runtime.device import (
     pin_deterministic_kernels,
@@ -113,7 +149,17 @@ from gan_deeplearning4j_tpu_torch.runtime.dtype import (
 )
 from gan_deeplearning4j_tpu_torch.utils.metrics import MetricsLogger
 from gan_deeplearning4j_tpu_torch.utils.profiling import PhaseTimer, device_trace
-from gan_deeplearning4j_tpu_torch.utils.serializer import ModelSerializer, read_model, write_model
+from gan_deeplearning4j_tpu_torch.utils.serializer import (
+    ModelSerializer,
+    _element_count,
+    _flatten,
+    _unflatten,
+    read_model,
+    read_state_shard,
+    shard_keys,
+    write_model,
+    write_state_shard,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -225,16 +271,45 @@ def _rebind(src: TrainState, dst: TrainState, mapping) -> TrainState:
     )
 
 
+class _Batches:
+    """Consecutive ``b``-row slices of tensors, as DataSets (the phased
+    averaging fits' minibatch stream)."""
+
+    def __init__(self, features: torch.Tensor, labels: torch.Tensor, b: int):
+        self.features, self.labels, self.b, self._at = features, labels, b, 0
+
+    def has_next(self) -> bool:
+        return self._at < self.features.shape[0]
+
+    def next(self) -> DataSet:
+        lo, self._at = self._at, self._at + self.b
+        return DataSet(self.features[lo:self._at], self.labels[lo:self._at])
+
+
 def _stack(rows: Sequence) -> torch.Tensor:
     """Batches of one shape, host arrays or device tensors, stacked where
     they lie: device batches never come back to the host."""
     return torch.stack([torch.as_tensor(r) for r in rows])
 
 
-def experiment_device(cfg: ExperimentConfig) -> torch.device:
-    """The device ``config.use_accelerator`` asks for; on the card, fp32
-    runs with TF32 off and cuDNN restricted to deterministic algorithms."""
-    device = resolve_device(None if cfg.use_accelerator else "cpu")
+def experiment_mesh(cfg: ExperimentConfig, mesh):
+    """The experiment's mesh: ``mesh`` itself when given, else, under a
+    distributed mode, the mesh over the environment's process group
+    (``runtime/environment.py::make_mesh``); None for ``"none"``."""
+    check_mesh(mesh)
+    if mesh is None and cfg.distributed != "none":
+        from gan_deeplearning4j_tpu_torch.runtime.environment import make_mesh
+
+        mesh = make_mesh(use_accelerator=cfg.use_accelerator)
+    return mesh
+
+
+def experiment_device(cfg: ExperimentConfig, mesh=None) -> torch.device:
+    """The device ``config.use_accelerator`` asks for (the mesh's device
+    on a mesh); on the card, fp32 runs with TF32 off and cuDNN restricted
+    to deterministic algorithms."""
+    device = mesh.device if mesh is not None else resolve_device(
+        None if cfg.use_accelerator else "cpu")
     if device.type == "cuda":
         pin_fp32_precision()
         pin_deterministic_kernels()
@@ -267,13 +342,10 @@ class GanExperiment:
     """The application loop, assembled from the port's layers."""
 
     def __init__(self, config: ExperimentConfig = ExperimentConfig(), mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh experiments are not ported yet: ROADMAP.md queue 1, 'Parallel training'"
-            )
         self.config = config.validate()
         cfg = config
-        self.device = dev = experiment_device(cfg)
+        self.mesh = experiment_mesh(cfg, mesh)
+        self.device = dev = experiment_device(cfg, self.mesh)
         self.family = registry.get(cfg.model_family)
         self.model_cfg = self.family.make_model_config(cfg)
         self.dis_to_gan, self.gan_to_gen = self.family.sync_maps(self.model_cfg)
@@ -289,8 +361,8 @@ class GanExperiment:
         self.gen = self.family.build_generator(gen_cfg)
         self.gan = self.family.build_gan(gen_cfg)
         dis_params = self.dis.init(device=dev)
-        self.dis_trainer = GraphTrainer(self.dis)
-        self.gan_trainer = GraphTrainer(self.gan)
+        self.dis_trainer = self._make_trainer(self.dis)
+        self.gan_trainer = self._make_trainer(self.gan)
         self.dis_state = self.dis_trainer.init_state(params=dis_params)
         self.gan_state = self.gan_trainer.init_state(device=dev)
         self.cv = self.cv_trainer = self.cv_state = None
@@ -298,7 +370,7 @@ class GanExperiment:
             self.cv, cv_params = self.family.build_transfer_classifier(
                 self.dis, dis_params, self.model_cfg
             )
-            self.cv_trainer = GraphTrainer(self.cv)
+            self.cv_trainer = self._make_trainer(self.cv)
             self.cv_state = self.cv_trainer.init_state(params=cv_params)
         self.gen_params = self.gen.init(device=dev)
         self._compute_dtype = parse_compute_dtype(cfg.compute_dtype)
@@ -307,6 +379,8 @@ class GanExperiment:
         self.gan_state = self._cast_state(self.gan_state)
         self.cv_state = self._cast_state(self.cv_state)
         self.gen_params = self._cast_state(self.gen_params)
+        if cfg.update_sharding:
+            self._enable_update_sharding()
 
         # label-softening noise, sampled once like the reference (:404-406)
         self._noise_rng = np.random.default_rng(cfg.seed)
@@ -318,10 +392,77 @@ class GanExperiment:
         self.z_source = self._draw_z
 
         self.timer = PhaseTimer()
-        self.metrics = MetricsLogger(cfg.metrics_jsonl)
+        self.metrics = MetricsLogger(cfg.metrics_jsonl if self._writes else None)
         self.batch_counter = 0
         self._epilogue_active = False
-        self.graphs = CapturedIterations(self._body, dev)
+        averaging = cfg.distributed == "param_averaging"
+        self.graphs = CapturedIterations(self._avg_body if averaging else self._body, dev,
+                                         captured=self._captured())
+
+    # -- the mesh ---------------------------------------------------------
+    @property
+    def _writes(self) -> bool:
+        """Whether this process writes files (rank 0 of a mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    @property
+    def _world(self) -> int:
+        return 1 if self.mesh is None else self.mesh.size
+
+    def _captured(self) -> bool:
+        """Windows run as CUDA-graph replays on the card, unless the mesh is
+        gloo's, whose collectives are host calls a graph cannot hold: then
+        the device body runs uncaptured on the same buffers."""
+        return self.device.type == "cuda" and (self.mesh is None or self.mesh.capturable)
+
+    def _make_trainer(self, graph: ComputationGraph):
+        """The JAX package's ``_make_trainer``: the parameter-averaging
+        trainer under ``param_averaging``, a mesh ``GraphTrainer`` under
+        ``pmean``, a single-device one otherwise."""
+        cfg = self.config
+        if cfg.distributed == "param_averaging":
+            return ParameterAveragingTrainer(graph, self.mesh,
+                                             batch_size_per_worker=cfg.batch_size_per_worker,
+                                             averaging_frequency=cfg.averaging_frequency)
+        return GraphTrainer(graph, mesh=self.mesh if cfg.distributed == "pmean" else None)
+
+    def _enable_update_sharding(self) -> None:
+        """Partition every trainer's update and updater state over the
+        mesh. The partition is taken over the whole ``_flat_state()``
+        namespace, so compute shard k owns the updater keys checkpoint
+        shard k writes."""
+        from gan_deeplearning4j_tpu_torch.parallel.update_sharding import UpdateShardingPlan
+
+        global_keys = {k: _element_count(v) for k, v in self._flat_state().items()}
+        models = [("dis", self.dis_trainer, "dis_state"), ("gan", self.gan_trainer, "gan_state")]
+        if self.cv is not None:
+            models.append(("CV", self.cv_trainer, "cv_state"))
+        for name, trainer, attr in models:
+            state = getattr(self, attr)
+            trainer.enable_update_sharding(UpdateShardingPlan(
+                trainer.graph, trainer.optimizer, state.params, self.mesh, model_name=name,
+                global_keys=global_keys))
+            setattr(self, attr, TrainState(state.params, trainer.plan.pack_state(state.opt_state),
+                                           state.step))
+
+    def _tree_state(self, trainer, state: TrainState) -> TrainState:
+        """The tree form of a state (what checkpoints and digests take):
+        itself, or under update sharding with the updater rows gathered (a
+        collective)."""
+        if getattr(trainer, "shard_updates", False) and state is not None:
+            return TrainState(state.params, trainer.plan.unpack_state(state.opt_state), state.step)
+        return state
+
+    def _local_rows(self, x, n: int):
+        """This rank's rows of a global ``(…, n, …)`` batch axis 1 (a
+        window), after truncating ``n`` to a multiple of the world size as
+        ``DataSet.shard_batch`` does; ``x`` itself without a mesh."""
+        if self.mesh is None or x is None:
+            return x
+        usable = n // self.mesh.size * self.mesh.size
+        if usable == 0:
+            raise ValueError(f"batch of {n} cannot be split over {self.mesh.size} shards")
+        return x[:, self.mesh.rows(usable)]
 
     # -- randomness -------------------------------------------------------
     def _soft_noise(self, n: int) -> np.ndarray:
@@ -396,16 +537,26 @@ class GanExperiment:
         return cast_float_leaves(state, self._param_dtype)
 
     # -- the iteration ----------------------------------------------------
+    def _global_draws(self, dis_step: int, n: int):
+        """``(z (2, n, z_size), soft1 (n, 1), soft0 (n, 1))`` of the
+        iteration at ``dis_step`` for ``n`` global rows (host tensors)."""
+        z = torch.as_tensor(self.z_source(dis_step, n), dtype=torch.float32)
+        if self.config.resample_label_noise:
+            soft1, soft0 = self._resampled_soft_labels(dis_step, n)
+        else:
+            soft1, soft0 = self._soft_labels(n)
+        return z, soft1, soft0
+
     def _step_draws(self, dis_step: int, b: int) -> torch.Tensor:
         """Every input the iteration at ``dis_step`` keys by step, as one
         float32 host row: z ``(2, b, z_size)``, soft1 and soft0 ``(b, 1)``
         (fixed or resampled), then the dis-LR scale when that schedule is
-        on (``_unpack_draws`` reads it back)."""
-        z = torch.as_tensor(self.z_source(dis_step, b), dtype=torch.float32)
-        if self.config.resample_label_noise:
-            soft1, soft0 = self._resampled_soft_labels(dis_step, b)
-        else:
-            soft1, soft0 = self._soft_labels(b)
+        on (``_unpack_draws`` reads it back). On a mesh, ``b`` is this
+        rank's rows: the global draws are made and its rows taken."""
+        z, soft1, soft0 = self._global_draws(dis_step, b * self._world)
+        if self.mesh is not None:
+            rows = self.mesh.rows(b * self._world)
+            z, soft1, soft0 = z[:, rows], soft1[rows], soft0[rows]
         parts = [z.reshape(-1), soft1.reshape(-1), soft0.reshape(-1)]
         scale = self._dis_lr_scale(dis_step)
         if scale is not None:
@@ -471,6 +622,85 @@ class GanExperiment:
         new = {"dis": dis_state, "gan": gan_state, "cv": cv_state, "gen": gen_params}
         return new, torch.stack([(d1 + d2) / 2.0, g, c])
 
+    def _avg_body(self, trees: Dict, inputs: Dict[str, torch.Tensor]):
+        """The per-fit averaging body (the JAX ``_build_fused_avg_body``):
+        each fit is one local optimizer step on this worker's rows (two, real
+        then fake, for the discriminator's 2-minibatch fit), then params and
+        updater state are averaged over the mesh; the losses are the
+        workers' means. Functional, like ``_body``."""
+        real_f, real_l = inputs["features"], inputs.get("labels")
+        b = real_f.shape[0]
+        z, soft1, soft0, dis_scale = self._unpack_draws(inputs["draws"], b)
+        dis, gan, cv = self.dis_trainer, self.gan_trainer, self.cv_trainer
+        dis_state, gan_state, cv_state, gen_params = trees["dis"], trees["gan"], trees["cv"], trees["gen"]
+        with compute_dtype_scope(self._compute_dtype):
+            with torch.no_grad(), record_function("iteration.sample_fake"):
+                fake = self.gen.output(gen_params, z[0], train=False).reshape(real_f.shape)
+            with record_function("iteration.dis_real"):
+                dis_state, d1 = dis.local.train_step(dis_state, real_f, soft1, dis_scale)
+            with record_function("iteration.dis_fake"):
+                dis_state, d2 = dis.local.train_step(dis_state, fake, soft0, dis_scale)
+            with record_function("iteration.average"):
+                dis_state = dis.average(dis_state)
+            gan_state = _rebind(dis_state, gan_state, self.dis_to_gan)
+            ones = torch.ones((b, 1), dtype=torch.float32, device=real_f.device)
+            with record_function("iteration.gan"):
+                gan_state, g = gan.local.train_step(gan_state, z[1], ones)
+            with record_function("iteration.average"):
+                gan_state = gan.average(gan_state)
+            gen_params = ComputationGraph.copy_params(gan_state.params, gen_params, self.gan_to_gen)
+            if self.cv is None:
+                c = torch.full((), float("nan"), device=real_f.device)
+            else:
+                cv_state = _rebind(dis_state, cv_state, self.family.dis_to_cv)
+                with record_function("iteration.cv"):
+                    cv_state, c = cv.local.train_step(cv_state, real_f, real_l)
+                with record_function("iteration.average"):
+                    cv_state = cv.average(cv_state)
+        row = collectives.mean([torch.stack([(d1 + d2) / 2.0, g, c])], self.mesh)[0]
+        return {"dis": dis_state, "gan": gan_state, "cv": cv_state, "gen": gen_params}, row
+
+    def _phased_iteration(self, real_features, real_labels) -> Dict:
+        """The JAX package's phased iteration under ``param_averaging``
+        (``_train_iteration`` without a fused program): every fit is a
+        ``ParameterAveragingTrainer.fit`` over the global rows, the
+        discriminator's real and fake rows as one fit of two minibatches.
+        z comes from ``z_source`` (fakes, then the generator step) at the
+        global batch; the losses are host floats."""
+        cfg = self.config
+        dev = self.device
+        real_f = self._to_device(real_features)
+        real_l = None if real_labels is None else self._to_device(real_labels)
+        b = real_f.shape[0]
+        dis_step = self.dis_state.step
+        z, soft1, soft0 = self._global_draws(dis_step, b)
+        z = z.to(dev)
+        with compute_dtype_scope(self._compute_dtype):
+            with self.timer.phase("sample_fake"), torch.no_grad():
+                fake = self.gen.output(self.gen_params, z[0], train=False).reshape(b, cfg.num_features)
+            with self.timer.phase("train_dis"):
+                feats = torch.cat([real_f, fake])
+                labels = torch.cat([soft1, soft0]).to(dev)
+                self.dis_state, d_losses = self.dis_trainer.fit(
+                    self.dis_state, _Batches(feats, labels, b))
+            self.gan_state = _rebind(self.dis_state, self.gan_state, self.dis_to_gan)
+            with self.timer.phase("train_gan"):
+                ones = torch.ones((b, 1), dtype=torch.float32, device=dev)
+                self.gan_state, g_losses = self.gan_trainer.fit(self.gan_state, _Batches(z[1], ones, b))
+            self.gen_params = ComputationGraph.copy_params(self.gan_state.params, self.gen_params,
+                                                           self.gan_to_gen)
+            cv_losses: List[float] = []
+            if self.cv is not None:
+                self.cv_state = _rebind(self.dis_state, self.cv_state, self.family.dis_to_cv)
+                with self.timer.phase("train_cv"):
+                    self.cv_state, cv_losses = self.cv_trainer.fit(
+                        self.cv_state, _Batches(real_f, real_l, b))
+
+        def mean(xs):
+            return float(np.mean(xs)) if xs else float("nan")
+
+        return {"d_loss": mean(d_losses), "g_loss": mean(g_losses), "cv_loss": mean(cv_losses)}
+
     def _trees(self) -> Dict:
         return {"dis": self.dis_state, "gan": self.gan_state, "cv": self.cv_state,
                 "gen": self.gen_params}
@@ -479,10 +709,15 @@ class GanExperiment:
         self.dis_state, self.gan_state = trees["dis"], trees["gan"]
         self.cv_state, self.gen_params = trees["cv"], trees["gen"]
 
-    def _window(self, features, labels) -> Dict:
+    def _window(self, features, labels, local: bool = False) -> Dict:
         """K iterations of the device body over a ``(K, B, …)`` window
         (``graphs.run``: K replays on the card). Returns ``(K,)`` device
-        loss vectors, freshly allocated."""
+        loss vectors, freshly allocated. On a mesh the window holds global
+        batches, of which this rank takes its rows, unless ``local`` says
+        they are its rows already (a mesh iterator's)."""
+        if not local:
+            n = features.shape[1]
+            features, labels = self._local_rows(features, n), self._local_rows(labels, n)
         feats = self._to_device(features)
         window = {"features": feats}
         # the classifier step and the generator's condition read labels
@@ -500,21 +735,31 @@ class GanExperiment:
         self._set_trees(trees)
         return {"d_loss": rows[:, 0], "g_loss": rows[:, 1], "cv_loss": rows[:, 2]}
 
-    def train_iteration(self, real_features, real_labels) -> Dict:
+    def train_iteration(self, real_features, real_labels, local: bool = False) -> Dict:
         """One full alternating iteration (a window of one). Inputs:
         features (B, num_features) in [0,1] and one-hot labels (B, classes),
-        host arrays or tensors. Returns device scalars (no host read)."""
+        host arrays or tensors: the global batch on a mesh (``local``: this
+        rank's rows). Returns device scalars (no host read); under
+        ``param_averaging`` the phased iteration, with host floats."""
+        if self.config.distributed == "param_averaging":
+            if local:
+                raise ValueError("the phased averaging iteration fits the global rows")
+            return self._phased_iteration(real_features, real_labels)
+
+        def one(x):
+            return None if x is None else torch.as_tensor(x)[None]
+
         with self.timer.phase("train_fused"):
-            losses = self._window(self._to_device(real_features)[None],
-                                  None if real_labels is None else self._to_device(real_labels)[None])
+            losses = self._window(one(real_features), one(real_labels), local)
         return {k: v[0] for k, v in losses.items()}
 
-    def train_iterations(self, features, labels) -> Dict:
+    def train_iterations(self, features, labels, local: bool = False) -> Dict:
         """K iterations over a ``(K, B, num_features)`` / ``(K, B, classes)``
         window, moved to the device once; on the card K graph replays,
         bit-equal to K calls of ``train_iteration``. Returns ``(K,)`` device
-        loss vectors."""
-        return self._window(features, labels)
+        loss vectors. Under ``param_averaging`` each is the per-fit
+        averaging body."""
+        return self._window(features, labels, local)
 
     def flops_per_iteration(self, batch_size: Optional[int] = None) -> int:
         """FLOPs of the dense and (transposed) convolution layers in one
@@ -535,11 +780,13 @@ class GanExperiment:
         """Decode the z-grid and write ``{prefix}_out_{index}.csv``:
         (grid², num_features) rows, one device→host copy."""
         cfg = self.config
+        path = os.path.join(cfg.output_dir, f"{cfg.file_prefix}_out_{index}.csv")
+        if not self._writes:
+            return path
         with torch.no_grad(), compute_dtype_scope(self._compute_dtype):
             out = self.gen.output(self.gen_params, self._to_device(self._z_grid), train=False)
         out = out.cpu().numpy().reshape(self._z_grid.shape[0], cfg.num_features)
         os.makedirs(cfg.output_dir, exist_ok=True)
-        path = os.path.join(cfg.output_dir, f"{cfg.file_prefix}_out_{index}.csv")
         write_csv(path, out, precision=6)
         return path
 
@@ -550,6 +797,9 @@ class GanExperiment:
             raise ValueError(
                 f"family {self.family.name!r} has no transfer classifier to predict with"
             )
+        path = os.path.join(cfg.output_dir, f"{cfg.file_prefix}_test_predictions_{index}.csv")
+        if not self._writes:
+            return path
         test_iterator.reset()
         chunks: List[np.ndarray] = []
         while test_iterator.has_next():
@@ -559,7 +809,6 @@ class GanExperiment:
             chunks.append(out.cpu().numpy())
         preds = np.vstack(chunks) if chunks else np.zeros((0, cfg.num_classes))
         os.makedirs(cfg.output_dir, exist_ok=True)
-        path = os.path.join(cfg.output_dir, f"{cfg.file_prefix}_test_predictions_{index}.csv")
         write_csv(path, preds, precision=6)
         return path
 
@@ -570,11 +819,15 @@ class GanExperiment:
         return int(self.gan_state.step)
 
     def digest_states(self) -> Dict:
-        """Every trained state, by model name: what bit-exactness checks
-        compare (``flatten_states`` flattens it)."""
-        states = {"dis": self.dis_state, "gan": self.gan_state, "gen": self.gen_params}
+        """Every trained state, by model name, in tree form: what
+        bit-exactness checks compare (``flatten_states`` flattens it).
+        Under update sharding a collective (the updater rows are
+        gathered)."""
+        states = {"dis": self._tree_state(self.dis_trainer, self.dis_state),
+                  "gan": self._tree_state(self.gan_trainer, self.gan_state),
+                  "gen": self.gen_params}
         if self.cv is not None:
-            states["CV"] = self.cv_state
+            states["CV"] = self._tree_state(self.cv_trainer, self.cv_state)
         return states
 
     def rounding_only_keys(self) -> List[str]:
@@ -591,20 +844,114 @@ class GanExperiment:
         has no classifier)."""
         cfg = self.config
         directory = directory or cfg.output_dir
-        os.makedirs(directory, exist_ok=True)
+        states = self.digest_states()
+        graphs = {"dis": self.dis, "gan": self.gan, "gen": self.gen, "CV": self.cv}
         out = []
-        models = [
-            ("dis", self.dis, self.dis_state),
-            ("gan", self.gan, self.gan_state),
-            ("gen", self.gen, self.gen_params),
-        ]
-        if self.cv is not None:
-            models.append(("CV", self.cv, self.cv_state))
-        for name, graph, state in models:
+        for name, state in states.items():
             path = os.path.join(directory, f"{cfg.file_prefix}_{name}_model.zip")
-            write_model(path, graph, state, save_updater=True)
+            if self._writes:
+                write_model(path, graphs[name], state, save_updater=True)
             out.append(path)
         return out
+
+    # -- mesh-sharded checkpoints -----------------------------------------
+    def _flat_state(self) -> Dict:
+        """Every trained state as one flat ``<model>/{params|updater|step}/
+        ...`` dict, the namespace mesh checkpoints shard over (the JAX
+        package's keys; the step counters 0-d int32 arrays)."""
+        flat: Dict = {}
+        for name, state in self.digest_states().items():
+            if isinstance(state, TrainState):
+                _flatten(f"{name}/params", state.params, flat)
+                _flatten(f"{name}/updater", state.opt_state, flat)
+                flat[f"{name}/step"] = np.asarray(state.step, np.int32)
+            else:
+                _flatten(f"{name}/params", state, flat)
+        return flat
+
+    def save_model_shard(self, directory: str, shard_index: int, shard_count: int) -> List[str]:
+        """Write shard ``shard_index`` of ``shard_count`` of the trained state
+        (its keys of ``serializer.shard_keys``) into ``directory``, as the
+        JAX package's mesh writer names and fills it. Returns the file name
+        written. Under update sharding a collective."""
+        flat = self._flat_state()
+        mine = shard_keys(flat, shard_index, shard_count)
+        name = f"{self.config.file_prefix}_state_shard-{shard_index:04d}-of-{shard_count:04d}.zip"
+        write_state_shard(os.path.join(directory, name), {k: flat[k] for k in mine}, meta={
+            "shard_index": int(shard_index),
+            "shard_count": int(shard_count),
+            "step": self._publish_step(),
+            "total_keys": len(flat),
+            "update_sharding": bool(self.config.update_sharding),
+        })
+        return [name]
+
+    @staticmethod
+    def _merged_shard_state(directory: str, shard_files: List[str]) -> Dict:
+        """A mesh generation's shards merged into one flat dict, checked
+        for disjoint keys, one shard count, every shard, and the writer's
+        key count."""
+        counts, indices, flat, total_keys = set(), [], {}, None
+        for name in shard_files:
+            arrays, meta = read_state_shard(os.path.join(directory, name))
+            counts.add(int(meta["shard_count"]))
+            indices.append(int(meta["shard_index"]))
+            total_keys = int(meta["total_keys"])
+            overlap = set(arrays) & set(flat)
+            if overlap:
+                raise ValueError(f"mesh shards overlap on keys {sorted(overlap)[:3]}... "
+                                 f"— not one consistent generation")
+            flat.update(arrays)
+        if len(counts) != 1:
+            raise ValueError(f"mesh shards disagree on shard_count ({sorted(counts)}) — "
+                             f"files from different generations are mixed")
+        want = counts.pop()
+        if sorted(indices) != list(range(want)):
+            raise ValueError(f"mesh generation incomplete: have shards {sorted(indices)} "
+                             f"of {want} — refusing a partial restore")
+        if total_keys is not None and len(flat) != total_keys:
+            raise ValueError(f"mesh generation torn: merged {len(flat)} keys, writer "
+                             f"recorded {total_keys}")
+        return flat
+
+    def _shard_files(self, directory: str) -> List[str]:
+        return sorted(n for n in os.listdir(directory)
+                      if _MESH_SHARD_RE.search(n) and n.startswith(self.config.file_prefix))
+
+    def _restored(self, flat: Dict, model: str, trainer) -> TrainState:
+        """One model's state from a merged flat dict, checked against the
+        trainer's graph, on the experiment's device, in its storage dtype
+        (re-packed onto this mesh's partition under update sharding)."""
+        from gan_deeplearning4j_tpu_torch.interop import train_state_from_numpy
+
+        params = _unflatten(flat, f"{model}/params")
+        opt_state = _unflatten(flat, f"{model}/updater")
+        base = getattr(trainer.optimizer, "base", trainer.optimizer)
+        if not opt_state:
+            opt_state = base.init(params_from_numpy(params, self.device, graph=trainer.graph))
+        state = train_state_from_numpy(
+            {"params": params, "opt_state": opt_state, "step": int(np.asarray(flat[f"{model}/step"]))},
+            self.device, graph=trainer.graph)
+        return self._stored(state, trainer)
+
+    def _stored(self, state: TrainState, trainer) -> TrainState:
+        """A restored tree-form state in the storage dtype, its updater
+        state re-packed under update sharding."""
+        state = self._cast_state(state)
+        if getattr(trainer, "shard_updates", False):
+            state = TrainState(state.params, trainer.plan.pack_state(state.opt_state), state.step)
+        return state
+
+    def _load_models_sharded(self, directory: str, shard_files: List[str]) -> int:
+        flat = self._merged_shard_state(directory, shard_files)
+        self.dis_state = self._restored(flat, "dis", self.dis_trainer)
+        self.gan_state = self._restored(flat, "gan", self.gan_trainer)
+        if self.cv is not None:
+            self.cv_state = self._restored(flat, "CV", self.cv_trainer)
+        self.gen_params = self._cast_state(
+            params_from_numpy(_unflatten(flat, "gen/params"), self.device, graph=self.gen))
+        self.batch_counter = int(self.gan_state.step)
+        return self.batch_counter
 
     def load_models(self, directory: Optional[str] = None) -> int:
         """Resume: restore every state ``save_models`` wrote (params, updater
@@ -613,11 +960,9 @@ class GanExperiment:
         fp32 checkpoint is cast on entry."""
         cfg = self.config
         directory = directory or cfg.output_dir
-        if any(_MESH_SHARD_RE.search(n) and n.startswith(cfg.file_prefix)
-               for n in os.listdir(directory)):
-            raise NotImplementedError(
-                f"mesh-sharded checkpoints are not ported yet: {_OPERATIONS_WAITS}"
-            )
+        shard_files = self._shard_files(directory)
+        if shard_files:
+            return self._load_models_sharded(directory, shard_files)
         prefix = os.path.join(directory, cfg.file_prefix)
         self.dis_state = self._restore(f"{prefix}_dis_model.zip", self.dis_trainer)
         self.gan_state = self._restore(f"{prefix}_gan_model.zip", self.gan_trainer)
@@ -632,8 +977,11 @@ class GanExperiment:
 
     def _restore(self, path: str, trainer) -> TrainState:
         """One checkpoint with updater state, on the experiment's device, in
-        its storage dtype."""
-        return self._cast_state(ModelSerializer.restore_train_state(path, trainer, device=self.device))
+        its storage dtype (re-packed under update sharding)."""
+        tree = types.SimpleNamespace(graph=trainer.graph,
+                                     optimizer=getattr(trainer.optimizer, "base", trainer.optimizer))
+        return self._stored(ModelSerializer.restore_train_state(path, tree, device=self.device),
+                            trainer)
 
     def publish_for_serving(self, directory: Optional[str] = None, store=None) -> Dict:
         """Publish the inference artifacts (the generator and, where the
@@ -649,13 +997,17 @@ class GanExperiment:
             )
         cfg = self.config
         directory = directory or os.path.join(cfg.output_dir, "serving")
-        os.makedirs(directory, exist_ok=True)
+        writes = self._writes
+        if writes:
+            os.makedirs(directory, exist_ok=True)
         gen_name = f"{cfg.file_prefix}_gen_serving.zip"
-        write_model(os.path.join(directory, gen_name), self.gen, self.gen_params, save_updater=False)
+        if writes:
+            write_model(os.path.join(directory, gen_name), self.gen, self.gen_params, save_updater=False)
         cv_name = feature_vertex = None
         if self.cv is not None:
             cv_name = f"{cfg.file_prefix}_CV_serving.zip"
-            write_model(os.path.join(directory, cv_name), self.cv, self.cv_state, save_updater=False)
+            if writes:
+                write_model(os.path.join(directory, cv_name), self.cv, self.cv_state, save_updater=False)
             # the deepest dis-derived layer: the classifier's transfer features
             feature_vertex = list(self.family.dis_to_cv.values())[-1]
         manifest = {
@@ -675,7 +1027,8 @@ class GanExperiment:
         scenario = scenario_from_config(cfg)
         if scenario is not None:
             manifest["zoo"] = scenario.to_dict()
-        write_bundle_manifest(directory, manifest)
+        if writes:
+            write_bundle_manifest(directory, manifest)
         return {**manifest, "directory": directory}
 
     # -- the loop ---------------------------------------------------------
@@ -726,8 +1079,15 @@ class GanExperiment:
         cfg = self.config
         self._epilogue_active = epilogue_callback is not None
         if cfg.prefetch > 0 and not hasattr(train_iterator, "next_window"):
+            # under pmean each rank prefetches only its rows; the phased
+            # averaging iteration fits the global rows
+            mesh = self.mesh if cfg.distributed == "pmean" else None
             train_iterator = DevicePrefetchIterator(train_iterator, depth=cfg.prefetch,
-                                                    device=self.device)
+                                                    device=self.device, mesh=mesh)
+        # a mesh iterator hands this rank its rows of each global batch
+        local = getattr(train_iterator, "mesh", None) is not None
+        scale = self._world if local else 1
+        rank_rows = {"local": True} if local else {}
         history: List[Dict[str, float]] = []
         pending: List[tuple] = []  # (start iteration, loss record, images list)
         pending_iters = 0
@@ -779,9 +1139,9 @@ class GanExperiment:
                     window = train_iterator.next_window(target)  # one device slice
                 if window is not None:
                     n_window = int(window[0].shape[0])
-                    images = [int(window[0].shape[1])] * n_window
+                    images = [int(window[0].shape[1]) * scale] * n_window
                     with self.timer.phase("train_window"):
-                        losses = self.train_iterations(*window)
+                        losses = self.train_iterations(*window, **rank_rows)
                 else:
                     batches = [pull()]
                     while len(batches) < target:
@@ -796,15 +1156,17 @@ class GanExperiment:
                     while len(batches) > keep:  # epoch remainder → next turn
                         carry.appendleft(batches.pop())
                     n_window = len(batches)
-                    images = [b.num_examples() for b in batches]
+                    images = [b.num_examples() * scale for b in batches]
                     if n_window == 1:
-                        losses = self.train_iteration(batches[0].features, batches[0].labels)
+                        losses = self.train_iteration(batches[0].features, batches[0].labels,
+                                                      **rank_rows)
                     else:
                         with self.timer.phase("train_window"):
                             losses = self.train_iterations(
                                 _stack([b.features for b in batches]),
                                 None if batches[0].labels is None
                                 else _stack([b.labels for b in batches]),
+                                **rank_rows,
                             )
                 pending.append((self.batch_counter, losses, images))
                 pending_iters += n_window

@@ -48,6 +48,15 @@ False, the same body runs uncaptured on the same buffers, with the same
 copies and write-back: the plain version of the captured path, which the
 CPU tests hold against the JAX package.
 
+Data-parallel bodies (``parallel/``) make collectives. NCCL's run inside
+a CUDA graph: a mesh experiment on NCCL captures its body, the
+all-reduces, reduce-scatters and all-gathers included (the warmup runs
+make NCCL's communicator before the capture), and a failed capture fails
+the run. gloo's collectives are calls of a host library, which a graph
+cannot hold, so an experiment on a gloo mesh builds this object with
+``captured=False``: chosen from the backend when the experiment is made,
+not a fallback taken when a capture fails.
+
 Capture on the card: the body runs ``WARMUP_RUNS`` times on a side stream
 without its write-back (the first run shows the target layout; nothing
 trains, so nothing needs restoring), then ``torch.cuda.graph`` captures
@@ -176,10 +185,10 @@ class CapturedIterations:
       warmup-and-capture seconds and the bytes its private memory pool
       reserved."""
 
-    def __init__(self, body: Body, device: torch.device):
+    def __init__(self, body: Body, device: torch.device, captured: Optional[bool] = None):
         self._body = body
         self.device = device
-        self.captured = device.type == "cuda"
+        self.captured = device.type == "cuda" if captured is None else captured
         self._layouts: Dict[tuple, _Layout] = {}
         self._entries: Dict[tuple, _Entry] = {}
         self._stream = None

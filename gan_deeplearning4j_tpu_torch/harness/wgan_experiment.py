@@ -31,6 +31,16 @@ rounds is K replays of that body captured as a CUDA graph
 (``harness/graphs.py``); on the CPU it runs uncaptured on the same
 buffers. The states are updated in place.
 
+Data parallel (``distributed="pmean"``, the one mode the JAX package's
+WGAN-GP takes): the global batch is split into the ``n_critic`` critic
+minibatches first, and each rank takes its contiguous rows of every
+minibatch (the JAX package's ``PartitionSpec(None, "data")`` on the
+``(n_critic, B/n, F)`` rounds); the draws are made for the global rows and
+each rank takes the same rows of z and of the penalty's ε, and its rows of
+the generator's z. A mesh iterator hands each rank contiguous rows of the
+global batch, which split into minibatches differently: the same law,
+another assignment of rows to critic steps than the JAX package's.
+
 Precision is ``GanExperiment``'s: rounds, sampling and exports run inside
 the experiment's compute-dtype scope, and bf16 storage casts both states at
 init and on load. The gradient penalty's double backward then runs through
@@ -50,10 +60,9 @@ import torch
 from gan_deeplearning4j_tpu_torch.harness.config import ExperimentConfig
 from gan_deeplearning4j_tpu_torch.harness.graphs import CapturedIterations
 from gan_deeplearning4j_tpu_torch.harness.experiment import (
-    _MESH_SHARD_RE,
-    _OPERATIONS_WAITS,
     GanExperiment,
     experiment_device,
+    experiment_mesh,
     forward_flops,
     latent_grid,
     rounding_only_params,
@@ -75,17 +84,14 @@ class WganGpExperiment(GanExperiment):
     def __init__(self, config: Optional[ExperimentConfig] = None, mesh=None):
         # GanExperiment.__init__ builds the three-graph protocol, which
         # does not apply here
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh experiments are not ported yet: ROADMAP.md queue 1, 'Parallel training'"
-            )
         config = config if config is not None else ExperimentConfig(model_family="wgan_gp")
         self.config = config.validate()
         cfg = config
-        self.device = experiment_device(cfg)
+        self.mesh = experiment_mesh(cfg, mesh)
+        self.device = experiment_device(cfg, self.mesh)
         self.family = registry.get(cfg.model_family)
         self.model_cfg = self.family.make_model_config(cfg)
-        self.trainer = WganGpTrainer(self.model_cfg)
+        self.trainer = WganGpTrainer(self.model_cfg, mesh=self.mesh)
         self.critic_state, self.gen_state = self.trainer.init_states(cfg.seed, device=self.device)
         self._compute_dtype = parse_compute_dtype(cfg.compute_dtype)
         self._param_dtype = parse_compute_dtype(cfg.param_dtype)
@@ -99,10 +105,10 @@ class WganGpExperiment(GanExperiment):
         self.draw_source = self._draw
 
         self.timer = PhaseTimer()
-        self.metrics = MetricsLogger(cfg.metrics_jsonl)
+        self.metrics = MetricsLogger(cfg.metrics_jsonl if self._writes else None)
         self.batch_counter = 0
         self._epilogue_active = False
-        self.graphs = CapturedIterations(self._body, self.device)
+        self.graphs = CapturedIterations(self._body, self.device, captured=self._captured())
 
     @property
     def gen_params(self):
@@ -130,9 +136,36 @@ class WganGpExperiment(GanExperiment):
 
     def _step_draws(self, gen_step: int, rows: int) -> torch.Tensor:
         """The round's ``(zs, epsilons, gen_z)`` at ``rows`` rows a step, as
-        one float32 host row."""
-        draws = self.draw_source(gen_step, self.model_cfg.n_critic, rows)
-        return torch.cat([torch.as_tensor(t, dtype=torch.float32).reshape(-1) for t in draws])
+        one float32 host row. On a mesh ``rows`` is this rank's: the draws
+        are made for the global rows and its rows taken."""
+        zs, epsilons, gen_z = (torch.as_tensor(t, dtype=torch.float32) for t in
+                               self.draw_source(gen_step, self.model_cfg.n_critic, rows * self._world))
+        if self.mesh is not None:
+            r = self.mesh.rows(rows * self._world)
+            zs, epsilons, gen_z = zs[:, r], epsilons[:, r], gen_z[r]
+        return torch.cat([t.reshape(-1) for t in (zs, epsilons, gen_z)])
+
+    def _local_rows(self, x, n: int):
+        """This rank's rows of a global ``(K, B, F)`` window: the tail policy
+        of ``_critic_batches`` on B, the ``n_critic`` minibatches, and the
+        rank's contiguous rows of each (truncated to a multiple of the
+        world size), as ``(K, n_critic · rows, F)``."""
+        if self.mesh is None or x is None:
+            return x
+        nc = self.model_cfg.n_critic
+        x = torch.as_tensor(x)
+        if n == 0:
+            raise ValueError("empty batch")
+        if n < nc:
+            x = x.repeat(1, -(-nc // n), 1)[:, :nc]
+            n = nc
+        rounds = x[:, : n // nc * nc].reshape(x.shape[0], nc, n // nc, -1)
+        per_step = rounds.shape[2] // self.mesh.size * self.mesh.size
+        if per_step == 0:
+            raise ValueError(f"critic minibatches of {rounds.shape[2]} rows cannot be split "
+                             f"over {self.mesh.size} shards")
+        mine = rounds[:, :, self.mesh.rows(per_step)]
+        return mine.reshape(x.shape[0], -1, mine.shape[-1])
 
     def _window_draws(self, k: int, b: int) -> torch.Tensor:
         rows = self._critic_rows(b)
@@ -179,21 +212,22 @@ class WganGpExperiment(GanExperiment):
     def _set_trees(self, trees: Dict) -> None:
         self.critic_state, self.gen_state = trees["critic"], trees["gen"]
 
-    def train_iteration(self, real_features, real_labels=None) -> Dict:
+    def train_iteration(self, real_features, real_labels=None, local: bool = False) -> Dict:
         """One WGAN-GP round (a window of one). ``real_labels`` is accepted
         (``run()`` passes labels) and ignored: the critic is unsupervised.
+        On a mesh the batch is global (``local``: this rank's rows).
         Returns device scalars; ``cv_loss`` is NaN."""
         with self.timer.phase("train_round"):
-            losses = self._window(self._to_device(real_features)[None], None)
+            losses = self._window(torch.as_tensor(real_features)[None], None, local)
         return {k: v[0] for k, v in losses.items()}
 
-    def train_iterations(self, features, labels=None) -> Dict:
+    def train_iterations(self, features, labels=None, local: bool = False) -> Dict:
         """K rounds over a ``(K, B, num_features)`` window, moved to the
         device once, each keyed by its generator step: identical to K calls
         of ``train_iteration`` (K graph replays on the card). Returns
         ``(K,)`` device loss vectors."""
         with self.timer.phase("train_rounds"):
-            return self._window(features, None)
+            return self._window(features, None, local)
 
     def flops_per_iteration(self, batch_size: Optional[int] = None) -> int:
         """FLOPs of the dense and (transposed) convolution layers in one
@@ -242,16 +276,23 @@ class WganGpExperiment(GanExperiment):
         each with its Adam state, as the JAX package writes them."""
         cfg = self.config
         directory = directory or cfg.output_dir
-        os.makedirs(directory, exist_ok=True)
         paths = []
         for name, graph, state in (
             ("critic", self.trainer.critic, self.critic_state),
             ("gen", self.trainer.generator, self.gen_state),
         ):
             path = os.path.join(directory, f"{cfg.file_prefix}_{name}_model.zip")
-            write_model(path, graph, state, save_updater=True)
+            if self._writes:
+                write_model(path, graph, state, save_updater=True)
             paths.append(path)
         return paths
+
+    def _load_models_sharded(self, directory: str, shard_files: List[str]) -> int:
+        flat = self._merged_shard_state(directory, shard_files)
+        self.critic_state = self._restored(flat, "critic", self.trainer.critic_trainer)
+        self.gen_state = self._restored(flat, "gen", self.trainer.gen_trainer)
+        self.batch_counter = int(self.gen_state.step)
+        return self.batch_counter
 
     def load_models(self, directory: Optional[str] = None) -> int:
         """Resume from either package's ``save_models`` directory. Returns
@@ -259,11 +300,9 @@ class WganGpExperiment(GanExperiment):
         storage every float leaf is cast on entry, as at init."""
         cfg = self.config
         directory = directory or cfg.output_dir
-        if any(_MESH_SHARD_RE.search(n) and n.startswith(cfg.file_prefix)
-               for n in os.listdir(directory)):
-            raise NotImplementedError(
-                f"mesh-sharded checkpoints are not ported yet: {_OPERATIONS_WAITS}"
-            )
+        shard_files = self._shard_files(directory)
+        if shard_files:
+            return self._load_models_sharded(directory, shard_files)
         prefix = os.path.join(directory, cfg.file_prefix)
         self.critic_state = self._restore(f"{prefix}_critic_model.zip", self.trainer.critic_trainer)
         self.gen_state = self._restore(f"{prefix}_gen_model.zip", self.trainer.gen_trainer)

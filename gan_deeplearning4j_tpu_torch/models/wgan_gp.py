@@ -10,7 +10,13 @@ Differences from the XENT families (Gulrajani et al. 2017):
   input gradient (``ops/losses.py::gradient_penalty``);
 - Adam(2e-4, β1 0, β2 0.9), no clipping, no L2.
 
-``WganGpTrainer`` runs on one device. Its steps are built like
+``WganGpTrainer`` runs on one device, or on a data mesh with per-step
+gradient sync (``pmean``, as the JAX package's sharded critic round and
+generator step run): each rank takes its rows of every critic minibatch
+and of the generator's z, and each step's gradients and loss are averaged
+over the mesh before Adam (``GraphTrainer.reduce``). The critic has no
+BatchNorm; the generator's ``gen_batch_2`` reads its statistics over the
+global batch in the generator step. Its steps are built like
 ``GraphTrainer.train_step``: gradients of detached copies of the
 trainable leaves by ``autograd.grad``, then ``GraphOptimizer.step``, with
 new tensors returned. The random inputs (z, ε) are arguments: the caller
@@ -162,13 +168,10 @@ class WganGpTrainer:
     (``n_critic`` sequential critic steps) and a generator step."""
 
     def __init__(self, cfg: WganGpConfig = WganGpConfig(), mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh WGAN-GP training is not ported yet: ROADMAP.md queue 1, 'Parallel training'"
-            )
         self.cfg = cfg
-        self.critic_trainer = GraphTrainer(build_critic(cfg))
-        self.gen_trainer = GraphTrainer(build_generator(cfg))
+        self.mesh = mesh
+        self.critic_trainer = GraphTrainer(build_critic(cfg), mesh=mesh)
+        self.gen_trainer = GraphTrainer(build_generator(cfg), mesh=mesh)
         self.critic = self.critic_trainer.graph
         self.generator = self.gen_trainer.graph
         self.critic_opt = self.critic_trainer.optimizer
@@ -198,7 +201,7 @@ class WganGpTrainer:
         """``(loss, grads)`` of :meth:`critic_loss` at ``cparams``, the
         gradients ``{layer: {param: grad}}`` of every trainable leaf."""
         params, keys, leaves = grad_leaves(self.critic_opt, cparams)
-        with torch.enable_grad(), record_function("step.grad"):
+        with torch.enable_grad(), record_function("step.grad"), self.critic_trainer.sync_scope():
             loss = self.critic_loss(params, gen_params, real, z, epsilon)
             grads = grads_by_layer(keys, torch.autograd.grad(loss, leaves))
         return loss.detach(), grads
@@ -208,7 +211,7 @@ class WganGpTrainer:
         −E[D(G(z))] at ``gparams``, the generator in training mode
         (``new_params`` carries its new BN running statistics)."""
         params, keys, leaves = grad_leaves(self.gen_opt, gparams)
-        with torch.enable_grad(), record_function("step.grad"):
+        with torch.enable_grad(), record_function("step.grad"), self.gen_trainer.sync_scope():
             outs, new_params = self.generator.apply(params, z, train=True)
             fake = outs[self.generator.output_names[0]].reshape(z.shape[0], -1)
             loss = -torch.mean(self._score(critic_params, fake))
@@ -219,6 +222,7 @@ class WganGpTrainer:
         """One critic optimizer step: ``(params, opt_state, loss)``. The
         step counter is the round's to advance."""
         loss, grads = self.critic_grads(state.params, gen_params, real, z, epsilon)
+        grads, loss = self.critic_trainer.reduce(grads, loss)
         with record_function("step.update"):
             new_params, opt_state = self.critic_opt.step(state.params, grads, state.opt_state)
         return new_params, opt_state, loss
@@ -243,6 +247,7 @@ class WganGpTrainer:
         mode and keeps its new BN running statistics; the critic is read
         at ``critic_params`` and not updated."""
         loss, grads, new_params = self.gen_grads(state.params, critic_params, z)
+        grads, loss = self.gen_trainer.reduce(grads, loss)
         with record_function("step.update"):
             params, opt_state = self.gen_opt.step(new_params, grads, state.opt_state)
         return TrainState(params, opt_state, state.step + 1), loss

@@ -181,7 +181,7 @@ class BatchNormalization(Layer):
         if train:
             y, new_mean, new_var = norm_ops.batch_norm_train(
                 x, params["gamma"], params["beta"], params["mean"], params["var"],
-                eps=self.eps, decay=self.decay,
+                eps=self.eps, decay=self.decay, mesh=norm_ops.current_batch_norm_mesh(),
             )
             return self._act(y), {"mean": new_mean, "var": new_var}
         y = norm_ops.batch_norm_inference(

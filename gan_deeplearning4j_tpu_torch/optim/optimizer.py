@@ -26,7 +26,7 @@ step returns new params and a new state tree.
 from __future__ import annotations
 
 from collections import defaultdict
-from typing import Dict, List, Tuple, Union
+from typing import Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
 
@@ -60,17 +60,27 @@ class GraphOptimizer:
             if self.trainable(layer, pname)
         ]
 
-    def init(self, params: Dict) -> Dict:
+    def init(self, params: Dict, keys: Optional[Iterable[Tuple[str, str]]] = None) -> Dict:
         """Updater state tree ``{layer: {param: state}}`` for the trainable
-        params."""
+        params; ``keys`` restricts it to a slice of ``(layer, param)``
+        pairs (the JAX package's shard-slice init)."""
+        wanted = None if keys is None else set(keys)
         return {
             layer: {
                 pname: updater.init_state(p)
                 for pname, p in params[layer].items()
-                if self.trainable(layer, pname)
+                if self.trainable(layer, pname) and (wanted is None or (layer, pname) in wanted)
             }
             for layer, updater in self._updaters.items()
         }
+
+    def state_structs(self, params: Dict) -> Dict:
+        """The updater state tree as tensors on the ``meta`` device (shapes
+        and dtypes, no storage): what the update-sharding plan derives its
+        layout and key namespace from."""
+        meta = {layer: {n: torch.empty_like(t, device="meta") for n, t in lp.items()}
+                for layer, lp in params.items()}
+        return self.init(meta)
 
     def clip_grads(self, grads):
         if self._clip == "elementwise":

@@ -58,6 +58,17 @@ class UpdaterSpec:
     def init_state(self, param) -> State:
         return {}
 
+    def init_state_packed(self, packed_param) -> State:
+        """State for a flat run of trainable elements (the update-sharding
+        layout): :meth:`init_state` of it, with a 0-d slot (Adam's ``t``)
+        broadcast per element, so the update stays elementwise."""
+        out = {}
+        for field, value in self.init_state(packed_param).items():
+            if value.ndim == 0:
+                value = value.expand(packed_param.shape).clone()
+            out[field] = value
+        return out
+
     def apply_group(
         self, states: Sequence[State], grads: Sequence[torch.Tensor], params: Sequence[torch.Tensor]
     ) -> Tuple[List[torch.Tensor], List[State]]:

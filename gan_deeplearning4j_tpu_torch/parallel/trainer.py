@@ -23,6 +23,22 @@ unless its updater changes it as the reference's does (Adam,
 so reading it never waits for the device. The two halves of a step are
 ``torch.profiler.record_function`` ranges, ``step.grad`` (forward, loss and
 backward) and ``step.update`` (clip and updater).
+
+Data parallel (``mesh=``, a ``runtime/environment.py::DataMesh``): the
+per-step gradient sync of the JAX package's data-sharded step, one process
+per rank. Each rank runs the forward on its own rows, with training-mode
+BatchNorm reading its statistics over the global batch
+(``ops/norm.py::batch_norm_mesh``); its local mean loss (+ L2) is
+differentiated; every gradient leaf and the loss are averaged over the
+mesh (``parallel/collectives.py::mean``: one all-reduce per dtype); then
+the optimizer clips and updates, so the elementwise clip sees the mean
+gradient, as the JAX package's does, and the L2 term, which each rank's
+loss carries, counts once. Every rank ends the step with the same bits.
+``shard_updates=True`` replaces the all-reduce and the replicated update
+by ``parallel/update_sharding.py``'s reduce-scatter, owned-keys update and
+all-gather (``exact_grads=False``; by default the gradients are averaged
+as here and each rank slices its keys out of the mean, so the sharded
+step equals the replicated one bit for bit).
 """
 
 from __future__ import annotations
@@ -33,10 +49,11 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 from torch.profiler import record_function
 
+from gan_deeplearning4j_tpu_torch.ops.norm import batch_norm_mesh
 from gan_deeplearning4j_tpu_torch.optim.optimizer import GraphOptimizer
+from gan_deeplearning4j_tpu_torch.parallel import collectives
 from gan_deeplearning4j_tpu_torch.runtime.device import DeviceLike
-
-_PARALLEL_WAITS = "ROADMAP.md queue 1, 'Parallel training'"
+from gan_deeplearning4j_tpu_torch.runtime.environment import DataMesh
 
 
 @dataclasses.dataclass
@@ -84,36 +101,106 @@ def detach_params(params: Dict) -> Dict:
     return {layer: {n: t.detach() for n, t in lp.items()} for layer, lp in params.items()}
 
 
-class GraphTrainer:
-    """Single-device trainer for one ComputationGraph. ``mesh`` and
-    ``shard_updates`` belong to the data-parallel trainers, which are not
-    ported yet."""
+def check_mesh(mesh) -> None:
+    """A trainer's ``mesh`` is a ``DataMesh`` (``runtime/environment.py``)
+    or None."""
+    if mesh is not None and not isinstance(mesh, DataMesh):
+        raise TypeError(
+            f"mesh must be a DataMesh (runtime.environment.make_mesh), not "
+            f"{type(mesh).__name__}")
 
-    def __init__(self, graph, mesh=None, shard_updates: bool = False):
-        if mesh is not None or shard_updates:
-            raise NotImplementedError(
-                f"mesh trainers and sharded updates are not ported yet: {_PARALLEL_WAITS}"
-            )
+
+class GraphTrainer:
+    """Single-device or data-parallel trainer for one ComputationGraph.
+
+    With ``mesh=None`` a step runs on this process's device alone. With a
+    mesh, each rank feeds its own rows and the step is the per-step
+    gradient sync of the module docstring; ``shard_updates`` partitions the
+    update and the updater state over the mesh. ``model_name`` and
+    ``global_state_keys`` name the flat key namespace the update-sharding
+    partition is taken over (an experiment passes its own; standalone use
+    derives one from this model)."""
+
+    def __init__(self, graph, mesh=None, shard_updates: bool = False, model_name: str = "model",
+                 global_state_keys=None, exact_grads: bool = True):
+        check_mesh(mesh)
+        if shard_updates and mesh is None:
+            raise ValueError("shard_updates requires a mesh — there is no "
+                             "data axis to shard the update over")
         self.graph = graph
         self.optimizer = GraphOptimizer(graph)
+        self.mesh = mesh
+        self.shard_updates = shard_updates
+        self.model_name = model_name
+        self._global_state_keys = global_state_keys
+        self._exact_grads = exact_grads
+        self.plan = None
 
     def init_state(self, seed: Optional[int] = None, params: Optional[Dict] = None,
                    *, device: DeviceLike = None) -> TrainState:
-        return make_train_state(self.graph, self.optimizer, seed, params, device=device)
+        if device is None and self.mesh is not None:
+            device = self.mesh.device
+        if not self.shard_updates:
+            return make_train_state(self.graph, self.optimizer, seed, params, device=device)
+        if params is None:
+            params = self.graph.init(seed, device=device)
+        self._ensure_plan(params)
+        return TrainState(params, self.optimizer.init(params), 0)
+
+    # -- update sharding ---------------------------------------------------
+    def _ensure_plan(self, params: Dict) -> None:
+        if self.plan is None:
+            from gan_deeplearning4j_tpu_torch.parallel.update_sharding import UpdateShardingPlan
+
+            self.enable_update_sharding(UpdateShardingPlan(
+                self.graph, self.optimizer, params, self.mesh, model_name=self.model_name,
+                global_keys=self._global_state_keys, exact_grads=self._exact_grads))
+
+    def enable_update_sharding(self, plan) -> None:
+        """Install an ``UpdateShardingPlan``: the optimizer becomes its
+        ``ShardedGraphOptimizer`` (``base`` keeps the replicated one)."""
+        from gan_deeplearning4j_tpu_torch.parallel.update_sharding import ShardedGraphOptimizer
+
+        if isinstance(self.optimizer, ShardedGraphOptimizer):
+            self.optimizer = self.optimizer.base
+        self.plan = plan
+        self.optimizer = ShardedGraphOptimizer(plan)
+        self.shard_updates = True
+
+    # -- the step ----------------------------------------------------------
+    def sync_scope(self):
+        """The scope of a training forward pass: BatchNorm statistics over
+        the mesh's global batch (none without a mesh)."""
+        return batch_norm_mesh(self.mesh)
+
+    def reduce(self, grads: Dict, loss: torch.Tensor) -> Tuple[Dict, torch.Tensor]:
+        """The mesh mean of the gradients and the loss (both as they are
+        without a mesh). Under update sharding with ``exact_grads=False``
+        only the loss: the sharded optimizer reduce-scatters the gradients
+        itself."""
+        if self.mesh is None:
+            return grads, loss
+        if self.shard_updates and not self.plan.exact_grads:
+            return grads, collectives.mean([loss], self.mesh)[0]
+        keys = [(layer, n) for layer, lp in grads.items() for n in lp]
+        flat = collectives.mean([grads[l][n] for l, n in keys] + [loss], self.mesh)
+        return grads_by_layer(keys, flat[:-1]), flat[-1]
 
     def train_step(self, state: TrainState, features, labels,
                    lr_scale: Union[float, torch.Tensor, None] = None) -> Tuple[TrainState, torch.Tensor]:
-        """One optimizer step on one minibatch: ``(new_state, loss)``, the
-        loss a device scalar (no host read). ``lr_scale`` is
-        ``GraphOptimizer.step``'s: a float, a 0-d tensor, or None."""
+        """One optimizer step on one minibatch (this rank's rows on a mesh):
+        ``(new_state, loss)``, the loss a device scalar (no host read), the
+        mesh mean on a mesh. ``lr_scale`` is ``GraphOptimizer.step``'s: a
+        float, a 0-d tensor, or None."""
         params, keys, leaves = grad_leaves(self.optimizer, state.params)
-        with torch.enable_grad(), record_function("step.grad"):
+        with torch.enable_grad(), record_function("step.grad"), self.sync_scope():
             loss, (_, new_params) = self.graph.loss(params, features, labels, train=True)
             grads = grads_by_layer(keys, torch.autograd.grad(loss, leaves))
         new_params = detach_params(new_params)
+        grads, loss = self.reduce(grads, loss.detach())
         with record_function("step.update"):
             params, opt_state = self.optimizer.step(new_params, grads, state.opt_state, lr_scale=lr_scale)
-        return TrainState(params, opt_state, state.step + 1), loss.detach()
+        return TrainState(params, opt_state, state.step + 1), loss
 
     def output(self, state: TrainState, features):
         """Inference forward (DL4J ``graph.output``)."""

@@ -1,9 +1,16 @@
-"""Runtime support for the PyTorch port: device resolution and numerics."""
+"""Runtime support for the PyTorch port: device resolution, numerics, and
+the process group and data mesh (``environment.py``)."""
 
 from gan_deeplearning4j_tpu_torch.runtime.device import (
     pin_deterministic_kernels,
     pin_fp32_precision,
     resolve_device,
+)
+from gan_deeplearning4j_tpu_torch.runtime.environment import (
+    DataMesh,
+    backend_info,
+    initialize_distributed,
+    make_mesh,
 )
 from gan_deeplearning4j_tpu_torch.runtime.dtype import (
     cast_float_leaves,
@@ -18,6 +25,10 @@ from gan_deeplearning4j_tpu_torch.runtime.dtype import (
 )
 
 __all__ = [
+    "DataMesh",
+    "backend_info",
+    "initialize_distributed",
+    "make_mesh",
     "cast_float_leaves",
     "compute_dtype_scope",
     "default_dtype_scope",

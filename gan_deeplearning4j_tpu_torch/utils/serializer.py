@@ -1,6 +1,8 @@
 """Model checkpoints in the JAX package's format — counterpart of
 ``gan_deeplearning4j_tpu/utils/serializer.py`` (``write_model``,
-``read_model`` and ``ModelSerializer.restore_train_state``).
+``read_model``, ``ModelSerializer.restore_train_state``, and the mesh
+checkpoint plane's ``shard_assignment``, ``shard_keys``,
+``write_state_shard`` and ``read_state_shard``).
 
 A checkpoint is one zip holding:
 
@@ -13,11 +15,22 @@ bfloat16 leaves travel as uint16 bit patterns, with the real dtype
 recorded in ``meta.json``'s ``array_dtypes``; int8 leaves (a quantized
 layer's ``W_q``) are npz's own int8 and load as int8. Only numpy and zipfile touch
 the bytes, so a zip written by either package loads in the other.
+
+A mesh checkpoint is one zip per shard, ``arrays.npz`` (the shard's keys
+of the experiment's flat ``<model>/params|updater|step`` namespace) and
+``meta.json``; the partition is :func:`shard_assignment`, a size-balanced
+split that every rank derives from the sorted keys and their element
+counts alone, and that the update-sharding plan
+(``parallel/update_sharding.py``) shares. The step counters enter the
+namespace as 0-d int32 arrays, as the JAX package's do: their element
+count is 1 (a Python int would count as its value). For the same arrays
+the port writes the JAX package's ``arrays.npz`` byte for byte.
 """
 
 from __future__ import annotations
 
 import hashlib
+import heapq
 import io
 import json
 import os
@@ -91,6 +104,123 @@ def _npz_decode(npz_bytes: bytes, ext_dtypes: Dict[str, str]) -> Dict:
     return flat
 
 
+def _element_count(value) -> int:
+    """Leaf size (elements) for the balanced partition: tensors and arrays
+    by shape, ints verbatim, anything else (None placeholders) 1."""
+    if value is None:
+        return 1
+    if isinstance(value, (int, np.integer)):
+        return max(1, int(value))
+    shape = getattr(value, "shape", None)
+    if shape is None:
+        return 1
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return max(1, n)
+
+
+def shard_assignment(sizes: Dict[str, int], shard_count: int) -> Dict[str, int]:
+    """The deterministic size-balanced partition of the flat key space,
+    key → owning shard: within each kind bucket (the second path
+    component, ``params`` / ``updater`` / ``step``) keys go largest first
+    to the least-loaded shard, ties to the lowest index. The JAX package's
+    function, value for value."""
+    if shard_count < 1:
+        raise ValueError("shard_count must be >= 1")
+
+    def bucket(key: str) -> str:
+        parts = key.split("/")
+        return parts[1] if len(parts) > 1 else ""
+
+    assign: Dict[str, int] = {}
+    for b in sorted({bucket(k) for k in sizes}):
+        order = sorted((k for k in sizes if bucket(k) == b),
+                       key=lambda k: (-_element_count(sizes[k]), k))
+        heap = [(0, i) for i in range(shard_count)]
+        heapq.heapify(heap)
+        for key in order:
+            load, i = heapq.heappop(heap)
+            assign[key] = i
+            heapq.heappush(heap, (load + _element_count(sizes[key]), i))
+    return assign
+
+
+def shard_keys(keys, shard_index: int, shard_count: int):
+    """Shard ``shard_index``'s keys of ``shard_count``: for a mapping (flat
+    key → tensor, array or size) its keys of :func:`shard_assignment`; for
+    a bare key list every ``shard_count``-th key of the sorted list."""
+    if shard_count < 1:
+        raise ValueError("shard_count must be >= 1")
+    if not 0 <= shard_index < shard_count:
+        raise ValueError(f"shard_index {shard_index} outside [0, {shard_count})")
+    if isinstance(keys, dict):
+        assign = shard_assignment(keys, shard_count)
+        return sorted(k for k, s in assign.items() if s == shard_index)
+    return sorted(keys)[shard_index::shard_count]
+
+
+def _write_zip(path: str, members) -> None:
+    """``members`` ``[(name, bytes)]`` into a zip at ``path``, by temp file,
+    fsync and rename."""
+    directory = os.path.dirname(os.path.abspath(path))
+    os.makedirs(directory, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as fh:
+            with zipfile.ZipFile(fh, "w", zipfile.ZIP_DEFLATED) as zf:
+                for name, data in members:
+                    zf.writestr(name, data)
+            fh.flush()
+            os.fsync(fh.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def write_state_shard(path: str, flat_arrays: Dict, meta: Optional[dict] = None) -> None:
+    """One shard of a mesh checkpoint: ``arrays.npz`` (this shard's flat
+    keys) and ``meta.json`` with the member digest, no topology (a restore
+    rebuilds onto the live experiment's graphs)."""
+    npz_bytes, ext_dtypes = _npz_encode(dict(flat_arrays))
+    payload = {
+        "format_version": FORMAT_VERSION,
+        "array_dtypes": ext_dtypes,
+        "keys": sorted(flat_arrays),
+        **(meta or {}),
+        "member_digests": {"arrays.npz": member_digest(npz_bytes)},
+    }
+    _write_zip(path, [("meta.json", json.dumps(payload)), ("arrays.npz", npz_bytes)])
+
+
+def read_state_shard(path: str) -> Tuple[Dict, dict]:
+    """``(flat arrays, meta)`` of one shard (numpy arrays; CPU bfloat16
+    tensors for bf16 leaves). A corrupted or truncated shard raises
+    ``ValueError``."""
+    try:
+        with zipfile.ZipFile(path, "r") as zf:
+            meta = json.loads(zf.read("meta.json"))
+            if meta["format_version"] > FORMAT_VERSION:
+                raise ValueError(
+                    f"shard format {meta['format_version']} is newer than "
+                    f"supported {FORMAT_VERSION}"
+                )
+            npz_bytes = zf.read("arrays.npz")
+            want = meta.get("member_digests", {}).get("arrays.npz")
+            if want is not None and member_digest(npz_bytes) != want:
+                raise ValueError(
+                    f"shard {path!r} member 'arrays.npz' fails digest "
+                    f"verification (expected {want}) — corrupted bytes"
+                )
+    except zipfile.BadZipFile as exc:
+        raise ValueError(f"corrupted or truncated shard {path!r}: {exc}") from exc
+    except KeyError as exc:
+        raise ValueError(f"shard {path!r} is missing a required member: {exc}") from exc
+    return _npz_decode(npz_bytes, meta.get("array_dtypes", {})), meta
+
+
 def write_model(path: str, graph, state, save_updater: bool = True) -> None:
     """Serialize graph topology + params (+ updater state) to ``path``.
 
@@ -117,22 +247,8 @@ def write_model(path: str, graph, state, save_updater: bool = True) -> None:
             "arrays.npz": member_digest(npz_bytes),
         },
     }
-    directory = os.path.dirname(os.path.abspath(path))
-    os.makedirs(directory, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
-    try:
-        with os.fdopen(fd, "wb") as fh:
-            with zipfile.ZipFile(fh, "w", zipfile.ZIP_DEFLATED) as zf:
-                zf.writestr("topology.json", topology_bytes)
-                zf.writestr("meta.json", json.dumps(meta))
-                zf.writestr("arrays.npz", npz_bytes)
-            fh.flush()
-            os.fsync(fh.fileno())
-        os.replace(tmp, path)
-    except BaseException:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise
+    _write_zip(path, [("topology.json", topology_bytes), ("meta.json", json.dumps(meta)),
+                      ("arrays.npz", npz_bytes)])
 
 
 def read_model(

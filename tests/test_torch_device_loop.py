@@ -193,12 +193,47 @@ def test_resident_next_window_matches_jax_sizes_and_slices(shuffle):
         assert port.next_window(0) is None
 
 
+def _cpu_mesh(rank, size):
+    """A rank's view of a CPU mesh (no process group: nothing here makes
+    a collective)."""
+    from gan_deeplearning4j_tpu_torch.runtime.environment import DataMesh
+
+    return DataMesh(group=None, rank=rank, size=size, device=torch.device("cpu"), backend="gloo")
+
+
 def test_resident_iterator_refuses_a_sharding_and_mismatched_rows():
+    """With ``mesh=`` each rank holds its contiguous rows of every global
+    batch (the ragged tail truncated to a multiple of the mesh size), its
+    windows the same rows of each batch; the ranks together are the
+    unsharded iterator's batches, epoch after epoch (shuffled too)."""
     x, y = _rows()
-    with pytest.raises(NotImplementedError, match="'Parallel training'"):
-        DeviceResidentIterator(x, y, device="cpu", sharding=object())
     with pytest.raises(ValueError, match="row mismatch"):
         DeviceResidentIterator(x, y[:-1], device="cpu")
+    with pytest.raises(ValueError, match="row mismatch"):
+        DeviceResidentIterator(x, y[:-1], mesh=_cpu_mesh(0, 2))
+    with pytest.raises(ValueError, match="does not split"):
+        DeviceResidentIterator(x, y, batch_size=5, mesh=_cpu_mesh(0, 2))
+    for shuffle in (False, True):
+        whole = DeviceResidentIterator(x, y, batch_size=4, shuffle=shuffle, device="cpu")
+        ranks = [DeviceResidentIterator(x, y, batch_size=4, shuffle=shuffle, mesh=_cpu_mesh(r, 2))
+                 for r in range(2)]
+        for _ in range(2):  # two epochs
+            while whole.has_next():
+                batch = whole.next()
+                usable = batch.num_examples() // 2 * 2
+                if not usable:  # a one-row tail splits over no mesh
+                    continue
+                parts = [it.next() for it in ranks]
+                np.testing.assert_array_equal(
+                    torch.cat([p.features for p in parts]).numpy(), batch.features[:usable].numpy())
+                np.testing.assert_array_equal(
+                    torch.cat([p.labels for p in parts]).numpy(), batch.labels[:usable].numpy())
+            assert not any(it.has_next() for it in ranks)
+            for it in ranks + [whole]:
+                it.reset()
+        wf, wl = ranks[1].next_window(2)
+        assert wf.shape == (2, 2, x.shape[1]) and ranks[1].mesh.size == 2
+        np.testing.assert_array_equal(wf[0].numpy(), ranks[1]._windowed[1][0].numpy())
 
 
 @pytest.mark.parametrize("depth", [1, 3])
@@ -235,13 +270,30 @@ def test_prefetch_iterator_matches_jax_and_its_inner_iterator(depth, transform):
 
 
 def test_dataset_to_device_keeps_values_and_refuses_a_sharding():
+    """``mesh=`` places the rank's contiguous rows of the batch (after
+    ``shard_batch``'s truncation to a multiple of the mesh size), as the
+    JAX package's ``DataSet.shard_batch`` and ``P("data")`` placement split
+    it; the prefetch iterator does the same per batch."""
     x, y = _rows(n=4)
     placed = DataSet(x, y).to_device("cpu")
     assert isinstance(placed.features, torch.Tensor) and placed.features.device.type == "cpu"
     np.testing.assert_array_equal(placed.labels.numpy(), y)
     assert DataSet(x).to_device("cpu").labels is None
-    with pytest.raises(NotImplementedError, match="'Parallel training'"):
-        DataSet(x, y).to_device("cpu", sharding=object())
+    x, y = _rows(n=7)
+    ref = JaxDataSet(x, y).shard_batch(2)
+    assert DataSet(x, y).shard_batch(2).num_examples() == ref.num_examples() == 6
+    for rank in range(2):
+        got = DataSet(x, y).to_device(mesh=_cpu_mesh(rank, 2))
+        np.testing.assert_array_equal(got.features.numpy(),
+                                      np.asarray(ref.features)[3 * rank:3 * rank + 3])
+        np.testing.assert_array_equal(got.labels.numpy(),
+                                      np.asarray(ref.labels)[3 * rank:3 * rank + 3])
+        prefetched = list(DevicePrefetchIterator(ArrayDataSetIterator(x, y, batch_size=4),
+                                                 mesh=_cpu_mesh(rank, 2)))
+        assert [b.num_examples() for b in prefetched] == [2, 1]
+        np.testing.assert_array_equal(prefetched[0].features.numpy(), x[2 * rank:2 * rank + 2])
+    with pytest.raises(ValueError, match="cannot be split"):
+        DataSet(x[:1], y[:1]).to_device(mesh=_cpu_mesh(0, 2))
 
 
 # -- the device body and its static buffers ------------------------------------------

@@ -210,6 +210,48 @@ def test_a_captured_window_equals_the_eager_body_and_captures_each_key_once(card
     assert captured.graphs.capture_counts == counts
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("overrides", [{}, {"update_sharding": True}])
+def test_an_nccl_world_one_pmean_window_equals_the_eager_body(card, tmp_path, overrides):
+    """Per-step gradient sync on an NCCL mesh of one rank: two windows of 4
+    MNIST iterations as graph replays, the NCCL all-reduces of the
+    gradients and of BatchNorm's statistics inside the graph, against the
+    same distributed body run eagerly from the same init and draws: every
+    leaf and loss bit-equal, each key captured once."""
+    import torch.distributed as dist
+
+    from gan_deeplearning4j_tpu_torch.runtime.environment import initialize_distributed, make_mesh
+
+    initialize_distributed(rank=0, world_size=1, init_file=str(tmp_path / "store"), backend="nccl")
+    try:
+        _nccl_window_case(make_mesh(), overrides)
+    finally:
+        dist.destroy_process_group()
+
+
+def _nccl_window_case(mesh, overrides):
+    assert mesh.backend == "nccl" and mesh.capturable
+
+    def experiment():
+        return make_experiment(ExperimentConfig(batch_size_train=16, save_models=False,
+                                                distributed="pmean", **overrides), mesh=mesh)
+
+    captured, eager = experiment(), experiment()
+    eager.graphs.captured = False
+    assert captured.graphs.captured
+    x = captured.family.synthetic_data(8 * 16, captured.model_cfg, 3).reshape(2, 4, 16, -1)
+    y = np.eye(10, dtype=np.float32)[np.arange(8 * 16) % 10].reshape(2, 4, 16, 10)
+    for w in range(2):
+        a, b = captured.train_iterations(x[w], y[w]), eager.train_iterations(x[w], y[w])
+        for key in ("d_loss", "g_loss", "cv_loss"):
+            assert torch.equal(a[key], b[key]), key
+        _assert_same_states(captured, eager)
+        if w == 0:
+            counts = dict(captured.graphs.capture_counts)
+            assert counts and set(counts.values()) == {1}
+    assert captured.graphs.capture_counts == counts
+
+
 # -- serving: one captured graph per (kind, bucket) ----------------------------------
 
 def _serving_engine(precision, warm=True):

@@ -370,6 +370,12 @@ def test_importing_the_port_loads_no_jax():
         "import gan_deeplearning4j_tpu_torch.telemetry.slo\n"
         "import gan_deeplearning4j_tpu_torch.telemetry.device\n"
         "import gan_deeplearning4j_tpu_torch.runtime.capture\n"
+        "import gan_deeplearning4j_tpu_torch.runtime.environment\n"
+        "import gan_deeplearning4j_tpu_torch.parallel.collectives\n"
+        "import gan_deeplearning4j_tpu_torch.parallel.param_averaging\n"
+        "import gan_deeplearning4j_tpu_torch.parallel.update_sharding\n"
+        "import gan_deeplearning4j_tpu_torch.parallel.launch\n"
+        "import gan_deeplearning4j_tpu_torch.parallel.drill\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'gan_deeplearning4j_tpu' or m.startswith('gan_deeplearning4j_tpu.')]\n"
         "assert not bad, bad\n"

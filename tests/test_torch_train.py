@@ -449,8 +449,8 @@ def test_cli_trains_on_the_cpu_only_when_asked(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("overrides,item", [
-    (dict(distributed="pmean"), "Parallel training"),
-    (dict(distributed="pmean", update_sharding=True), "Parallel training"),
+    (dict(distributed="pmean"), None),
+    (dict(distributed="pmean", update_sharding=True), None),
     (dict(compute_dtype="bf16"), None),
     (dict(param_dtype="bf16"), None),
     (dict(conditioning="class"), None),
@@ -464,7 +464,11 @@ def test_validate_refuses_what_the_port_lacks(overrides, item):
     does in the JAX package."""
     if item is None:
         cfg = ExperimentConfig(**overrides).validate()
-        if "prefetch" in overrides:
+        if "distributed" in overrides:
+            JaxConfig(**overrides).validate()
+            assert (cfg.distributed, cfg.update_sharding) == (
+                "pmean", overrides.get("update_sharding", False))
+        elif "prefetch" in overrides:
             assert cfg.prefetch == 2
         elif "conditioning" in overrides:
             JaxConfig(**overrides).validate()
@@ -492,13 +496,21 @@ def test_config_defaults_and_overrides_match_jax(tmp_path):
 def test_unported_entry_points_raise_and_the_default_device_is_the_card(jax_exp, tmp_path):
     _, init = jax_exp
     pexp = _port_experiment(init)
-    with pytest.raises(NotImplementedError, match="'Parallel training'"):
+    with pytest.raises(TypeError, match="DataMesh"):
         GraphTrainer(pexp.dis, mesh=object())
     with pytest.raises(NotImplementedError, match="'The operations planes'"):
         pexp.publish_for_serving(str(tmp_path), store=object())
-    (tmp_path / "mnist_state_shard-0000-of-0001.zip").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="'The operations planes'"):
-        pexp.load_models(str(tmp_path))
+    # a mesh-shard directory (here one shard of one) loads
+    pexp.train_iteration(*_data(B, seed=5))
+    shards = tmp_path / "shards"
+    shards.mkdir()
+    pexp.save_model_shard(str(shards), 0, 1)
+    again = _port_experiment(init)
+    assert again.load_models(str(shards)) == 1
+    want, got = flatten_states(pexp.digest_states()), flatten_states(again.digest_states())
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert torch.equal(torch.as_tensor(got[key]), torch.as_tensor(want[key])), key
     if torch.cuda.is_available():
         assert GanExperiment(ExperimentConfig(batch_size_train=B)).device.type == "cuda"
     else:

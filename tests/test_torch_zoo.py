@@ -148,8 +148,9 @@ def test_scenario_from_bundle_matches_jax(tmp_path):
     dict(conditioning="label"),
 ])
 def test_conditioning_rules_raise_the_jax_packages_errors_first(overrides):
-    """``param_averaging`` + class raises JAX's ``ValueError``, before the
-    port's 'Parallel training' refusal."""
+    """Each raises the JAX package's ``ValueError``, word for word
+    (``param_averaging`` + class among them, now that the port trains
+    ``param_averaging``)."""
     with pytest.raises(ValueError) as ref:
         JaxConfig(**overrides).validate()
     with pytest.raises(ValueError) as port:
