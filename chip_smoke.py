@@ -221,6 +221,29 @@ v. (v1) NCCL at world size 1, in this process (a ``FileStore``
    host staging's share). ``--only parallel`` runs (v) alone, as a
    rehearsal, with no result line.
 
+Then evaluation (``eval/``), the quality run's path:
+
+w. (w1) the Inception-schema interpreter (``inception_feature_fn``) card
+   against CPU, on InceptionV3's published stem and ``Mixed_5b`` block
+   (``eval/inception_schema.py``: conv biases and relu, weights from
+   ``default_rng(666)``, 256 features) at 299×299×3 fed 28×28×1 MNIST rows
+   (resized up, broadcast) and at 32×32×3 fed 64×64×3 ``celeba64`` rows
+   (resized down), and the frozen extractor at seed 7 with 3 channels:
+   features within 1e-4 of the largest, TF32 off; (w2) the quality run
+   (``eval/quality_run.py``) in this process at the reference's width
+   (MNIST b200, ``ExperimentConfig``'s defaults): 100 iterations, export
+   every 25, quick FID on 2048 samples, FID@10000, the (w1) 299 schema as
+   ``$INCEPTION_WEIGHTS``: the report has ``scripts/quality_run.py``'s
+   keys, ``fid_inception`` is a number, rescoring the saved best generator
+   reproduces its quick FID bit for bit, the final generator's quick FID
+   on the card is within 1e-3 of the CPU's from the same params,
+   ``evaluate_classifier`` gives ``export_predictions``' accuracy, and
+   ``GraphTrainer.fit`` over ``RecordReaderDataSetIterator(
+   InMemoryRecordReader)`` for 4 batches is bit-equal to 4 ``train_step``s;
+   (w3) timing, recorded: ms per quick-FID score, Inception-schema rows/s
+   at 299×299, ``evaluate_classifier`` rows/s, the run's phase seconds.
+   ``--only eval`` runs (w) alone.
+
 Every number is printed beside the card's name and power limit. The
 ``kernels`` line lists ``quant_dense`` (the JAX package has no Pallas
 kernel; its XLA-lowered ``quant_dense`` is the one op stock torch cannot
@@ -399,13 +422,13 @@ def _check_http(engine) -> dict:
         thread.join(timeout=30)
 
 
-def _event_median_ms(fn) -> float:
-    """Median of ``TIMED_RUNS`` single runs of ``fn``, each between two CUDA
-    events on the current stream, after five untimed runs."""
-    for _ in range(5):
+def _event_median_ms(fn, runs: int = TIMED_RUNS, warm: int = 5) -> float:
+    """Median of ``runs`` single runs of ``fn``, each between two CUDA
+    events on the current stream, after ``warm`` untimed runs."""
+    for _ in range(warm):
         fn()
     times = []
-    for _ in range(TIMED_RUNS):
+    for _ in range(runs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -3168,11 +3191,258 @@ def _post_path(base: str, path: str):
         return r.status, json.loads(r.read())
 
 
+# -- (w) evaluation on the card ----------------------------------------------------------
+
+#: (w) the quality run's settings: the reference's width, a short run
+QUALITY_ARGS = ["--iterations", "100", "--export-every", "25", "--select-samples", "2048",
+                "--fid-samples", "10000"]
+EVAL_TOL = 1e-4
+FID_CPU_RTOL = 1e-3
+
+
+def _feature_errors(card_fn, cpu_fn, rows) -> dict:
+    """The card's features against the CPU's on the same rows, relative to
+    the largest CPU feature."""
+    card, cpu = card_fn(rows), cpu_fn(rows)
+    if card.shape != cpu.shape or not np.isfinite(card).all():
+        raise AssertionError(f"features {card.shape} on the card, {cpu.shape} on the CPU")
+    return {"rows": int(len(rows)), "features": int(card.shape[1]),
+            "max_rel_err": float(np.abs(card - cpu).max() / np.abs(cpu).max())}
+
+
+def _eval_interpreter(x, directory: str, card: str) -> dict:
+    """(w1) The schema interpreter and the frozen extractor, card vs CPU."""
+    from gan_deeplearning4j_tpu_torch.eval.fid import frozen_feature_fn, inception_feature_fn
+    from gan_deeplearning4j_tpu_torch.eval.inception_schema import inception_v3_stem, write_schema
+    from gan_deeplearning4j_tpu_torch.harness import ExperimentConfig
+    from gan_deeplearning4j_tpu_torch.models import registry
+
+    celeba = registry.get("celeba64")
+    celeba_rows = celeba.synthetic_data(
+        16, celeba.make_model_config(ExperimentConfig(**FAMILIES["celeba64"])), SEED)
+    paths = {side: write_schema(os.path.join(directory, f"inception_{side}.npz"),
+                                *inception_v3_stem(side, side, seed=SEED)) for side in (299, 32)}
+    cases = {
+        "stem_299_from_mnist_28x28x1": (paths[299], (28, 28, 1), x[:16]),
+        "stem_32_from_celeba64_64x64x3": (paths[32], (64, 64, 3), celeba_rows),
+    }
+    errors = {}
+    for name, (path, (h, w, c), rows) in cases.items():
+        errors[name] = _feature_errors(inception_feature_fn(h, w, c, path=path, batch_size=8),
+                                       inception_feature_fn(h, w, c, path=path, batch_size=8,
+                                                            device="cpu"), rows)
+    errors["frozen_seed7_64x64x3"] = _feature_errors(
+        frozen_feature_fn(64, 64, 3, seed=7, batch_size=8),
+        frozen_feature_fn(64, 64, 3, seed=7, batch_size=8, device="cpu"), celeba_rows)
+    out = {"schemas": paths, "limit": EVAL_TOL, "card_vs_cpu": errors}
+    print(json.dumps({"phase": "eval_interpreter", **out, "card": card}))
+    bad = {k: v for k, v in errors.items() if v["max_rel_err"] > EVAL_TOL}
+    if bad:
+        raise AssertionError(f"(w1) card vs CPU features past {EVAL_TOL}: {bad}")
+    return out
+
+
+def _report_keys() -> tuple:
+    """``scripts/quality_run.py``'s report keys (top level, best checkpoint),
+    read from its source: the reference the port's report is held to."""
+    import ast
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "quality_run.py")
+    tree = ast.parse(open(path).read())
+    report = next(n.value for n in ast.walk(tree) if isinstance(n, ast.Assign)
+                  and any(isinstance(t, ast.Name) and t.id == "report" for t in n.targets))
+    keys = [k.value for k in report.keys]
+    return keys, [k.value for k in report.values[keys.index("best_checkpoint")].orelse.keys]
+
+
+class _Generator:
+    """What ``quick_fid_scorer`` reads of an experiment, for params held
+    apart from one."""
+
+    def __init__(self, exp, params, device):
+        self.model_cfg, self.gen, self._compute_dtype = exp.model_cfg, exp.gen, exp._compute_dtype
+        self.gen_params, self.device = params, torch.device(device)
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
+def _fit_vs_steps(exp, x, y) -> dict:
+    """``GraphTrainer.fit`` over an in-memory record reader against as many
+    ``train_step``s, on the card, from a copy of the trained classifier."""
+    from gan_deeplearning4j_tpu_torch.data import InMemoryRecordReader, RecordReaderDataSetIterator
+    from gan_deeplearning4j_tpu_torch.harness.experiment import flatten_states
+    from gan_deeplearning4j_tpu_torch.parallel import GraphTrainer, TrainState
+
+    batch, steps = 200, 4
+    rows = np.concatenate([x[:batch * steps], y[:batch * steps].argmax(1)[:, None]], axis=1)
+    trainer = GraphTrainer(exp.cv)
+
+    def start():
+        st = exp.cv_state
+        return TrainState(_clone_tree(st.params), _clone_tree(st.opt_state), st.step)
+
+    it = RecordReaderDataSetIterator(InMemoryRecordReader(rows), batch, label_index=784,
+                                     num_classes=10)
+    fitted, losses = trainer.fit(start(), it, num_batches=steps)
+    stepped, step_losses = start(), []
+    it.reset()
+    for _ in range(steps):
+        b = it.next().to_device(exp.device)
+        stepped, loss = trainer.train_step(stepped, b.features, b.labels)
+        step_losses.append(float(loss))
+    a = flatten_states({"cv": {"params": fitted.params, "opt_state": fitted.opt_state}})
+    b = flatten_states({"cv": {"params": stepped.params, "opt_state": stepped.opt_state}})
+    differing = sorted(k for k in b if not torch.equal(a[k], b[k]))
+    return {"batches": steps, "batch": batch, "losses": losses,
+            "losses_equal": losses == step_losses, "leaves": len(b), "differing": differing}
+
+
+def _eval_quality_run(x, y, directory: str, card: str, schema_299: str) -> dict:
+    """(w2) The quality run on the card and its checks; (w3)'s timings of it."""
+    from gan_deeplearning4j_tpu_torch.eval import quality_run
+    from gan_deeplearning4j_tpu_torch.eval.accuracy import evaluate_classifier
+    from gan_deeplearning4j_tpu_torch.eval.fid import (
+        FeatureStats,
+        frozen_feature_fn,
+        inception_feature_fn,
+        quick_fid_scorer,
+    )
+    from gan_deeplearning4j_tpu_torch.ops import linear
+    from gan_deeplearning4j_tpu_torch.utils.serializer import read_model
+
+    out_dir = os.path.join(directory, "quality_run")
+    previous = os.environ.get("INCEPTION_WEIGHTS")
+    os.environ["INCEPTION_WEIGHTS"] = schema_299
+    linear.KERNEL_LAUNCHES["quant_dense"] = 0
+    try:
+        report, parts = quality_run.run(quality_run.build_parser().parse_args(
+            QUALITY_ARGS + ["--out", out_dir]))
+    finally:
+        if previous is None:
+            os.environ.pop("INCEPTION_WEIGHTS", None)
+        else:
+            os.environ["INCEPTION_WEIGHTS"] = previous
+    quant_launches = linear.KERNEL_LAUNCHES["quant_dense"]
+    exp, best = parts["experiment"], parts["best"]
+    failed = []
+    keys, best_keys = _report_keys()
+    if list(report) != keys or list(report["best_checkpoint"]) != best_keys:
+        failed.append(f"report keys {list(report)} / {list(report['best_checkpoint'])}")
+    if report["platform"] != "gpu" or report["device_kind"] != torch.cuda.get_device_name(0):
+        failed.append(f"platform {report['platform']!r}, {report['device_kind']!r}")
+    if not isinstance(report["fid_inception"], float) or \
+            not str(report["fid_inception_source"]).startswith("inception:"):
+        failed.append(f"fid_inception {report['fid_inception']!r} "
+                      f"({report['fid_inception_source']!r})")
+
+    # the saved best generator scores its curve entry again, bit for bit
+    seed, select = 666 + 13, int(QUALITY_ARGS[QUALITY_ARGS.index("--select-samples") + 1])
+    best_params = (read_model(parts["best_zip"], load_updater=False)[1] if parts["best_zip"]
+                   else best["gen_params"])
+    rescore = quick_fid_scorer(exp, parts["frozen_fn"], parts["real_stats"], num_samples=select,
+                               seed=seed)
+    best_again = rescore(_Generator(exp, best_params, exp.device), best["iteration"])
+    curve_entry = dict(map(tuple, best["curve"]))[best["iteration"]]
+    if best_again != best["fid"] or round(best_again, 3) != curve_entry:
+        failed.append(f"best rescored {best_again!r}, tracked {best['fid']!r} ({curve_entry})")
+
+    # the final generator's quick FID, card against CPU from the same params
+    (xtr, _), (xte, yte) = parts["data"]
+    final_card = quick_fid_scorer(exp, parts["frozen_fn"], parts["real_stats"],
+                                  num_samples=select, seed=seed)(exp, -1)
+    cpu_frozen = frozen_feature_fn(28, 28, 1, seed=666, batch_size=2500, device="cpu")
+    cpu_params = {k: {n: t.cpu() for n, t in lp.items()} for k, lp in exp.gen_params.items()}
+    final_cpu = quick_fid_scorer(_Generator(exp, cpu_params, "cpu"), cpu_frozen,
+                                 FeatureStats.from_features(cpu_frozen(xtr)), num_samples=select,
+                                 seed=seed)(_Generator(exp, cpu_params, "cpu"), -1)
+    fid_rel = abs(final_card - final_cpu) / abs(final_cpu)
+    if fid_rel > FID_CPU_RTOL:
+        failed.append(f"final quick FID {final_card} on the card, {final_cpu} on the CPU")
+
+    # in-process accuracy against the exported predictions'
+    t0 = time.perf_counter()
+    acc = evaluate_classifier(exp.cv, exp.cv_state.params, xte, yte)
+    eval_s = time.perf_counter() - t0
+    if acc != parts["accuracy"]:
+        failed.append(f"evaluate_classifier {acc} against export_predictions {parts['accuracy']}")
+    t0 = time.perf_counter()
+    evaluate_classifier(exp.cv, exp.cv_state.params, xtr, parts["data"][0][1])
+    eval_train_s = time.perf_counter() - t0
+
+    fit = _fit_vs_steps(exp, x, y)
+    if fit["differing"] or not fit["losses_equal"]:
+        failed.append(f"fit against train_step: {fit['differing'][:5]}")
+
+    # (w3) timings
+    score_ms = []
+    for i in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rescore(exp, 10_000 + i)
+        score_ms.append((time.perf_counter() - t0) * 1e3)
+    z = torch.from_numpy(np.random.default_rng(seed).random((select, 2), dtype=np.float32) * 2 - 1)
+    z = z.to(exp.device)
+
+    def quick_device():
+        with torch.inference_mode():
+            parts["frozen_fn"].forward(exp.gen.output(exp.gen_params, z, train=False))
+
+    inc = inception_feature_fn(28, 28, 1, path=schema_299, batch_size=2500)
+    inc_rows = xtr[:2500]
+    inc(inc_rows)  # warm: cuDNN's plans
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inc(inc_rows)
+    inc_s = time.perf_counter() - t0
+    x_dev = torch.from_numpy(inc_rows).to(exp.device)
+    with torch.inference_mode():
+        inc_device_ms = _event_median_ms(lambda: inc.forward(x_dev), runs=3, warm=1)
+    timing = {
+        "quick_fid_score_ms": statistics.median(score_ms),
+        "quick_fid_device_ms": _event_median_ms(quick_device, runs=20, warm=1),
+        "quick_fid_rows": select,
+        "inception_299_rows_per_s": len(inc_rows) / inc_s,
+        "inception_299_device_rows_per_s": len(inc_rows) / inc_device_ms * 1e3,
+        "inception_rows": len(inc_rows),
+        "evaluate_classifier_rows_per_s": len(xtr) / eval_train_s,
+        "evaluate_classifier_test_s": eval_s,
+        "phase_seconds": parts["phase_seconds"],
+    }
+    out = {"report": report, "best_rescored": best_again, "final_quick_fid_card": final_card,
+           "final_quick_fid_cpu": final_cpu, "final_quick_fid_rel": fid_rel,
+           "accuracy_in_process": acc, "accuracy_exported": parts["accuracy"], "fit": fit,
+           "quant_dense_launches": quant_launches, "timing": timing}
+    print(json.dumps({"phase": "eval_quality_run", **{k: v for k, v in out.items() if k != "timing"},
+                      "card": card}))
+    print(json.dumps({"phase": "eval_timing", **timing, "card": card}))
+    if failed:
+        raise AssertionError(f"(w2) quality run: {failed}")
+    return out
+
+
+def _phase_eval(x, y, directory: str, card: str) -> dict:
+    """(w) Evaluation on the card: (w1) the interpreters card vs CPU, (w2)
+    the quality run and its checks, (w3) their timings."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    interp = _eval_interpreter(x, directory, card)
+    out = {"interpreter": interp,
+           "quality_run": _eval_quality_run(x, y, directory, card, interp["schemas"][299])}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 #: the training phases ``--only`` can run by themselves: (x, y, directory, card)
 _TRAINING_ONLY = {"windows": lambda *a: _phase_windows(*a),
                   "capture_timing": lambda x, y, d, card: _phase_capture_timing(x, y, card),
                   "zoo": lambda *a: _phase_zoo(*a),
-                  "parallel": lambda *a: _phase_parallel(*a)}
+                  "parallel": lambda *a: _phase_parallel(*a),
+                  "eval": lambda *a: _phase_eval(*a)}
 
 
 def _run_only(names, card: str) -> int:
@@ -3278,7 +3548,8 @@ def main(argv=None) -> int:
                          ("mux", lambda: _phase_mux(directory, int8_dir, directory, card)),
                          ("reload", lambda: _phase_reload(directory, directory, card)),
                          ("zoo", lambda: _phase_zoo(x, y, directory, card)),
-                         ("parallel", lambda: _phase_parallel(x, y, directory, card))):
+                         ("parallel", lambda: _phase_parallel(x, y, directory, card)),
+                         ("eval", lambda: _phase_eval(x, y, directory, card))):
             t0 = time.perf_counter()
             try:
                 families[key] = run()
@@ -3287,7 +3558,7 @@ def main(argv=None) -> int:
                 failed.append(key)
             seconds[key] = time.perf_counter() - t0
     if failed:
-        print(f"chip_smoke: family / bf16 / window / int8 / serving / zoo / parallel phases "
+        print(f"chip_smoke: family / bf16 / window / int8 / serving / zoo / parallel / eval phases "
               f"failed: {failed}",
               file=sys.stderr)
         return 1
@@ -3318,7 +3589,8 @@ def main(argv=None) -> int:
         "launches_by_path": {"int8_serve (n)": families["int8_serve"]["kernel_launches"],
                              "serving_captured (r)": families["serving_captured"]["kernel_launches"],
                              "mux (s)": families["mux"]["kernel_launches"],
-                             "zoo (u)": families["zoo"]["drill"]["kernel_launches"]},
+                             "zoo (u)": families["zoo"]["drill"]["kernel_launches"],
+                             "eval (w)": families["eval"]["quality_run"]["quant_dense_launches"]},
         "max_abs_err": quant["max_abs_err"], "ms": top["kernel_ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"], "library_ms": top["library_ms"],
         "shape": "x (128, 1152) fp32 · W_q (1152, 1024) int8 (dis_dense_layer_6)",

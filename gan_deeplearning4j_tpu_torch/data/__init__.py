@@ -10,7 +10,7 @@ on the device, windows as one slice) and ``DevicePrefetchIterator`` (any
 iterator, ``depth`` batches ahead on a side stream) yield device tensors.
 """
 
-from gan_deeplearning4j_tpu_torch.data.dataset import DataSet, one_hot_np
+from gan_deeplearning4j_tpu_torch.data.dataset import DataSet, one_hot, one_hot_np, train_test_split
 from gan_deeplearning4j_tpu_torch.data.iterator import (
     ArrayDataSetIterator,
     DataSetIterator,
@@ -26,14 +26,18 @@ from gan_deeplearning4j_tpu_torch.data.mnist import (
     write_mnist_csv,
 )
 from gan_deeplearning4j_tpu_torch.data.records import (
+    ClassPathResource,
     CSVRecordReader,
     FileSplit,
+    InMemoryRecordReader,
     write_csv,
 )
 
 __all__ = [
     "DataSet",
+    "one_hot",
     "one_hot_np",
+    "train_test_split",
     "ArrayDataSetIterator",
     "DataSetIterator",
     "DevicePrefetchIterator",
@@ -44,7 +48,9 @@ __all__ = [
     "prepare_mnist",
     "synthetic_mnist",
     "write_mnist_csv",
+    "ClassPathResource",
     "CSVRecordReader",
     "FileSplit",
+    "InMemoryRecordReader",
     "write_csv",
 ]

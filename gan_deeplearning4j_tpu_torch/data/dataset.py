@@ -9,6 +9,8 @@ multiple of the mesh size)."""
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import numpy as np
 import torch
 
@@ -22,6 +24,12 @@ class DataSet:
         self.features = features
         self.labels = labels
 
+    def get_features(self):
+        return self.features
+
+    def get_labels(self):
+        return self.labels
+
     def num_examples(self) -> int:
         return int(self.features.shape[0])
 
@@ -32,6 +40,16 @@ class DataSet:
         f = tuple(self.features.shape)
         l = tuple(self.labels.shape) if self.labels is not None else None
         return f"DataSet(features={f}, labels={l})"
+
+    @staticmethod
+    def merge(datasets: Sequence["DataSet"]) -> "DataSet":
+        """Row-concatenate several DataSets (Nd4j.vstack over a
+        List<DataSet>): tensors stay on their device, numpy rows on the
+        host."""
+        feats = _concat([d.features for d in datasets])
+        if datasets[0].labels is None:
+            return DataSet(feats)
+        return DataSet(feats, _concat([d.labels for d in datasets]))
 
     def shard_batch(self, n: int) -> "DataSet":
         """The batch truncated to a multiple of ``n`` (the mesh size)."""
@@ -71,9 +89,44 @@ class DataSet:
         return DataSet(put(self.features), None if self.labels is None else put(self.labels))
 
 
+def _concat(parts):
+    if any(isinstance(p, torch.Tensor) for p in parts):
+        device = next(p.device for p in parts if isinstance(p, torch.Tensor))
+        return torch.cat([torch.as_tensor(p, device=device) for p in parts], dim=0)
+    return np.concatenate(parts, axis=0)
+
+
+def one_hot(labels, num_classes: int, dtype=torch.float32, device: DeviceLike = None) -> torch.Tensor:
+    """Integer labels → one-hot rows as a tensor (RecordReaderDataSetIterator's
+    labelization), on ``device``: by default the labels' own when they are
+    a tensor, else the card. A label outside ``[0, num_classes)`` is an
+    all-zero row, as ``jax.nn.one_hot`` makes it."""
+    if device is None and isinstance(labels, torch.Tensor):
+        dev = labels.device
+    else:
+        dev = resolve_device(device)
+    ids = torch.as_tensor(np.asarray(labels) if not isinstance(labels, torch.Tensor) else labels)
+    ids = ids.to(dev).to(torch.int64).reshape(-1)
+    return (ids[:, None] == torch.arange(num_classes, device=dev)).to(dtype)
+
+
 def one_hot_np(labels: np.ndarray, num_classes: int, dtype=np.float32) -> np.ndarray:
     """Integer labels → one-hot rows (RecordReaderDataSetIterator's labelization)."""
     labels = np.asarray(labels).astype(np.int64).reshape(-1)
     out = np.zeros((labels.shape[0], num_classes), dtype=dtype)
     out[np.arange(labels.shape[0]), labels] = 1.0
     return out
+
+
+def train_test_split(features, labels, test_fraction: float, seed: int = 666):
+    """Deterministic host-side split: ``default_rng(seed).permutation``, the
+    first ``round(n · test_fraction)`` rows for the test set, as the JAX
+    package splits."""
+    n = features.shape[0]
+    perm = np.random.default_rng(seed).permutation(n)
+    n_test = int(round(n * test_fraction))
+    test_idx, train_idx = perm[:n_test], perm[n_test:]
+    return (
+        (features[train_idx], labels[train_idx]),
+        (features[test_idx], labels[test_idx]),
+    )

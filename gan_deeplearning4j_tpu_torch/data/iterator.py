@@ -61,7 +61,9 @@ class DataSetIterator:
 class RecordReaderDataSetIterator(DataSetIterator):
     """Rows → (features, one-hot labels) batches. ``label_index`` is the
     column holding the integer class; ``label_index=None`` yields unlabeled
-    feature batches."""
+    feature batches. A reader with ``next_block`` is read a batch at a
+    time; any other (``has_next`` / ``next_record`` / ``reset`` only) a
+    record at a time."""
 
     def __init__(self, reader: RecordReader, batch_size: int,
                  label_index: Optional[int] = None, num_classes: Optional[int] = None):
@@ -78,7 +80,13 @@ class RecordReaderDataSetIterator(DataSetIterator):
     def next(self) -> DataSet:
         if not self.has_next():
             raise StopIteration
-        block = self.reader.next_block(self.batch_size)
+        if hasattr(self.reader, "next_block"):
+            block = self.reader.next_block(self.batch_size)
+        else:
+            rows = []
+            while self.reader.has_next() and len(rows) < self.batch_size:
+                rows.append(self.reader.next_record())
+            block = np.stack(rows)
         if self.label_index is None:
             return DataSet(block)
         li = self.label_index

@@ -1,23 +1,51 @@
 """Record readers — counterpart of ``gan_deeplearning4j_tpu/data/records.py``.
 
-``CSVRecordReader(0, ",")`` over a ``FileSplit`` parses the whole file to
-one float32 matrix up front; the iterator layer batches and labelizes it.
-Parsing and writing go through numpy (the JAX package's optional C++
-parser is not copied).
+``CSVRecordReader(0, ",")`` over a
+``FileSplit(ClassPathResource("mnist_train.csv"))`` parses the whole file
+to one float32 matrix up front; the iterator layer batches and labelizes
+it. ``InMemoryRecordReader`` reads a matrix already in memory. Parsing and
+writing go through numpy (the JAX package's optional C++ parser is not
+copied).
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Optional
+import os
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
 
-class FileSplit:
-    """Trivial split over one file path (DL4J ``FileSplit``)."""
+class ClassPathResource:
+    """Resolve a data file by name against a search path (DL4J's
+    ``ClassPathResource`` resolved it on the JVM classpath): the explicit
+    ``roots``, then ``$GAN_DL4J_TPU_DATA``, the working directory and its
+    ``resources/``."""
 
-    def __init__(self, path: str):
-        self.path = path
+    def __init__(self, name: str, roots: Optional[Sequence[str]] = None):
+        self.name = name
+        env_root = os.environ.get("GAN_DL4J_TPU_DATA")
+        self.roots: List[str] = list(roots or [])
+        if env_root:
+            self.roots.append(env_root)
+        self.roots.extend([os.getcwd(), os.path.join(os.getcwd(), "resources")])
+
+    def get_file(self) -> str:
+        if os.path.isabs(self.name) and os.path.exists(self.name):
+            return self.name
+        for root in self.roots:
+            candidate = os.path.join(root, self.name)
+            if os.path.exists(candidate):
+                return candidate
+        raise FileNotFoundError(f"resource {self.name!r} not found under {self.roots}")
+
+
+class FileSplit:
+    """Trivial split over one file (DL4J ``FileSplit``): a path, or a
+    :class:`ClassPathResource` resolved now."""
+
+    def __init__(self, path):
+        self.path = path if isinstance(path, str) else path.get_file()
 
 
 class RecordReader:
@@ -79,4 +107,15 @@ class CSVRecordReader(RecordReader):
             split.path, delimiter=self.delimiter, skiprows=self.skip_lines,
             dtype=np.float32, ndmin=2,
         )
+        self._cursor = 0
+
+
+class InMemoryRecordReader(RecordReader):
+    """Reader over an in-memory matrix (tests, synthetic data)."""
+
+    def __init__(self, data: np.ndarray):
+        super().__init__()
+        self._data = np.asarray(data, dtype=np.float32)
+
+    def initialize(self, split: Optional[FileSplit] = None) -> None:
         self._cursor = 0

@@ -44,7 +44,7 @@ step equals the replicated one bit for bit).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch.profiler import record_function
@@ -201,6 +201,27 @@ class GraphTrainer:
         with record_function("step.update"):
             params, opt_state = self.optimizer.step(new_params, grads, state.opt_state, lr_scale=lr_scale)
         return TrainState(params, opt_state, state.step + 1), loss
+
+    def fit(self, state: TrainState, iterator,
+            num_batches: Optional[int] = None) -> Tuple[TrainState, List[float]]:
+        """Consume a DataSetIterator (DL4J ``fit(iterator)``): one
+        :meth:`train_step` per batch, up to ``num_batches``, so a mesh and
+        update sharding apply. Each batch goes to the params' device; on a
+        mesh, this rank's rows of a global batch (a mesh iterator's batches
+        are its rows already). Returns the new state and the per-batch
+        losses, kept on the device until the end and read in one copy.
+        There is no ``rng``: the port's step draws nothing."""
+        device = next(t for lp in state.params.values() for t in lp.values()).device
+        global_rows = self.mesh is not None and getattr(iterator, "mesh", None) is None
+        losses = []
+        while iterator.has_next() and (num_batches is None or len(losses) < num_batches):
+            batch = iterator.next()
+            batch = batch.to_device(mesh=self.mesh) if global_rows else batch.to_device(device)
+            state, loss = self.train_step(state, batch.features, batch.labels)
+            losses.append(loss)
+        if not losses:
+            return state, []
+        return state, [float(v) for v in torch.stack(losses).float().cpu()]
 
     def output(self, state: TrainState, features):
         """Inference forward (DL4J ``graph.output``)."""

@@ -1,5 +1,7 @@
-"""Runtime support for the PyTorch port: device resolution, numerics, and
-the process group and data mesh (``environment.py``)."""
+"""Runtime support for the PyTorch port: device resolution, numerics, the
+process group and data mesh (``environment.py``), the JAX package's key
+stream (``threefry.py``, ``prng.py::RngStream``) and the array factory
+(``factory.py``)."""
 
 from gan_deeplearning4j_tpu_torch.runtime.device import (
     pin_deterministic_kernels,
@@ -12,6 +14,7 @@ from gan_deeplearning4j_tpu_torch.runtime.environment import (
     initialize_distributed,
     make_mesh,
 )
+from gan_deeplearning4j_tpu_torch.runtime.prng import RngStream
 from gan_deeplearning4j_tpu_torch.runtime.dtype import (
     cast_float_leaves,
     compute_dtype_scope,
@@ -26,6 +29,7 @@ from gan_deeplearning4j_tpu_torch.runtime.dtype import (
 
 __all__ = [
     "DataMesh",
+    "RngStream",
     "backend_info",
     "initialize_distributed",
     "make_mesh",

@@ -440,6 +440,16 @@ class ServingEngine:
             return width - self.class_count
         return width
 
+    def scenario_manifest(self):
+        """The bundle's zoo block parsed as a ``zoo/manifest.py::
+        ScenarioManifest`` (None for a bundle without one). The engine keeps
+        the raw dict, so the zoo is imported only here."""
+        if self.scenario is None:
+            return None
+        from gan_deeplearning4j_tpu_torch.zoo.manifest import ScenarioManifest
+
+        return ScenarioManifest.from_dict(self.scenario)
+
     @property
     def replica_count(self) -> int:
         return 1

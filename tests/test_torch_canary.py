@@ -9,10 +9,11 @@ quality probe (``eval/quality.py``) and the canary gate
 - ``frozen_feature_fn`` is compared with the reference computed live in
   this process, never with the constant that ``tests/test_eval.py`` pins
   (it was captured on another jax, and the threefry stream moved; ROADMAP.md
-  §3). The port's kernels are the JAX package's own, exported into
-  ``gan_deeplearning4j_tpu_torch/eval/frozen_kernels.npz`` by this file:
-  ``PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_canary.py
-  --export-frozen-kernels``.
+  §3). The port draws its kernels from jax's threefry stream computed on
+  the host; the JAX package's own draw is pinned in
+  ``gan_deeplearning4j_tpu_torch/eval/frozen_kernels.npz``, exported by
+  this file: ``PYTHONPATH=. JAX_PLATFORMS=cpu python
+  tests/test_torch_canary.py --export-frozen-kernels``.
 - The probe and the gate get the same engines' rows: the probe's numbers
   equal the script's, and the gate admits and rejects as the JAX gate does.
 
@@ -169,18 +170,28 @@ def test_frozen_feature_fn_matches_the_live_reference(height, width, channels):
 
 
 def test_committed_frozen_kernels_are_the_live_references():
+    """The pin is the reference's draw bit for bit; the port's own draw
+    (``runtime/threefry.py``) is held to it within 1e-6 relative."""
     stamp = pt_fid.frozen_kernels_stamp()
     assert stamp["jax"] == jax.__version__ and stamp["seed"] == 666 and stamp["channels"] == [1, 3]
     for c in (1, 3):
-        for mine, live in zip(pt_fid.frozen_kernels(c), _live_frozen_kernels(c)):
-            assert mine.dtype == live.dtype == np.float32
-            np.testing.assert_array_equal(mine, live)
+        for pinned, mine, live in zip(pt_fid.pinned_frozen_kernels(c), pt_fid.frozen_kernels(c),
+                                      _live_frozen_kernels(c)):
+            assert pinned.dtype == mine.dtype == live.dtype == np.float32
+            np.testing.assert_array_equal(pinned, live)
+            np.testing.assert_allclose(mine, live, rtol=1e-6, atol=0)
 
 
 @pytest.mark.parametrize("kwargs", [{"seed": 7}, {"channels": 2}])
 def test_frozen_feature_fn_refuses_what_was_not_exported(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'Data and eval'"):
-        pt_fid.frozen_feature_fn(8, 8, device="cpu", **kwargs)
+    """Another seed or channel count was refused until the port drew the
+    kernels itself: now it is served, equal to the live reference's."""
+    channels = kwargs.get("channels", 1)
+    rows = np.random.default_rng(5).random((6, 8 * 8 * channels), dtype=np.float32)
+    ref = jax_fid.frozen_feature_fn(8, 8, batch_size=4, **kwargs)(rows)
+    pt = pt_fid.frozen_feature_fn(8, 8, batch_size=4, device="cpu", **kwargs)(rows)
+    assert pt.shape == ref.shape == (6, 224)
+    np.testing.assert_allclose(pt, ref, rtol=0, atol=FEATURE_REL * np.abs(ref).max())
 
 
 # -- the probe --------------------------------------------------------------------

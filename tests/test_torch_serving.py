@@ -376,6 +376,12 @@ def test_importing_the_port_loads_no_jax():
         "import gan_deeplearning4j_tpu_torch.parallel.update_sharding\n"
         "import gan_deeplearning4j_tpu_torch.parallel.launch\n"
         "import gan_deeplearning4j_tpu_torch.parallel.drill\n"
+        "import gan_deeplearning4j_tpu_torch.runtime.threefry\n"
+        "import gan_deeplearning4j_tpu_torch.runtime.prng\n"
+        "import gan_deeplearning4j_tpu_torch.runtime.factory\n"
+        "import gan_deeplearning4j_tpu_torch.eval.quality_run\n"
+        "import gan_deeplearning4j_tpu_torch as port\n"
+        "port.factory\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'gan_deeplearning4j_tpu' or m.startswith('gan_deeplearning4j_tpu.')]\n"
         "assert not bad, bad\n"
