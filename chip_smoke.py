@@ -263,6 +263,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2217,11 +2218,16 @@ def _phase_mux(fp32_dir: str, int8_dir: str, directory: str, card: str) -> dict:
     weights exactly and zeroes the candidate's; the costliest variant sheds
     first; the
     re-warmed engine captured every (kind, bucket) with no fault, and no
-    engine captured after warmup."""
+    engine captured after warmup. (x4) The service carries an
+    ``AlertManager`` over ``default_mux_rules()``: after the clean load,
+    three control ticks evaluate it over the process registry, and
+    ``/healthz``'s ``alerts`` block must name both rules with none
+    firing."""
     from gan_deeplearning4j_tpu_torch.ops import linear
     from gan_deeplearning4j_tpu_torch.quant import measure_bundle_cost
     from gan_deeplearning4j_tpu_torch.serving import make_server
     from gan_deeplearning4j_tpu_torch.serving.mux import MuxRegistry, MuxService, SharedStagingPool
+    from gan_deeplearning4j_tpu_torch.telemetry.alerts import AlertManager, default_mux_rules
 
     dirs = _serving_bundles(fp32_dir, int8_dir, directory)
     # measured here, each on its own engine: a variant built from a bundle
@@ -2237,7 +2243,8 @@ def _phase_mux(fp32_dir: str, int8_dir: str, directory: str, card: str) -> dict:
         registry.add(name, bundle_path=bundle, weight=MUX_WEIGHTS[name])
     warm_s = time.perf_counter() - t0
     engines = {name: [registry.engine_for(name)] for name in dirs}
-    service = MuxService(registry)
+    alerts = AlertManager(default_mux_rules())
+    service = MuxService(registry, alerts=alerts)
     server = make_server(service, port=0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -2267,6 +2274,11 @@ def _phase_mux(fp32_dir: str, int8_dir: str, directory: str, card: str) -> dict:
         for t in clients:
             t.join(timeout=120)
         loaded = list(results)
+        # (x4) the alert plane over the clean load, before any forced shed
+        for _ in range(3):
+            service.control_tick()
+        with urllib.request.urlopen(f"{base}/healthz", timeout=30) as r:
+            alert_health = json.loads(r.read()).get("alerts")
         assigned = {f["key"]: registry.splitter.assign(f["key"]) for f, _, _, _, _ in loaded}
         dispatches = sum(e.stats()["replica_dispatches"][0] for es in engines.values() for e in es)
         pool_stats = pool.stats()
@@ -2343,8 +2355,12 @@ def _phase_mux(fp32_dir: str, int8_dir: str, directory: str, card: str) -> dict:
                "rewarmed_warm_failed": rewarmed.warm_failed, "rewarmed_replay_equals_run_host": rerun,
                "serve_compile_counts": serve, "graph_pool_bytes": {
                    name: es[-1].stats()["graph_pool_bytes"] for name, es in engines.items()},
-               "kernel_launches": launches, "card": card}
+               "kernel_launches": launches, "alerts_health": alert_health,
+               "alert_ticks": alerts.snapshot()["ticks"], "card": card}
         print(json.dumps(row))
+        if (alert_health is None or alert_health["rules"] != len(default_mux_rules())
+                or not alert_health["ok"] or alert_health["firing"]):
+            raise AssertionError(f"(x4) mux alerts after clean traffic: {alert_health}")
         if (bad or misrouted or errors or len(served) != 3 or pool_stats["allocated_total"] >= dispatches
                 or cross != [200] * 6 or cross_allocated != 0
                 or ramp.state != "complete" or ramp_shares != {"int8": 1.0}
@@ -3437,12 +3453,260 @@ def _phase_eval(x, y, directory: str, card: str) -> dict:
     return out
 
 
+
+# -- (x) resilience: the supervisor, the worker CLI and its drill, the mesh commit ------
+
+#: (x1) in-process supervised runs at ``ExperimentConfig``'s defaults (MNIST b200)
+X1_STEPS, X1_PUBLISH_EVERY = 12, 4
+#: (x2) the single-writer drill through worker processes: the SIGUSR2 sent when
+#: the oracle's first generation lands must meet training, not a publish
+X2_STEPS, X2_PUBLISH_EVERY = 320, 160
+#: (x3) the mesh drill: two worker processes sharing the card
+X3_STEPS, X3_PUBLISH_EVERY, X3_MESH_TIMEOUT_S = 12, 3, 10.0
+#: (x1) the most the card's reserved memory may grow from one retry's start to
+#: the next (a leaked attempt would keep its graphs' pools, 468 MiB at MNIST b200)
+RETRY_MEMORY_SLACK = 64 << 20
+#: bound on every drill worker process, seconds
+DRILL_WORKER_TIMEOUT_S = 300.0
+
+
+def _deflated_zipfile():
+    """A stand-in for the ``zipfile`` module whose ``ZIP_STORED`` is
+    ``ZIP_DEFLATED``: the serializer's members as the port wrote them before
+    they were stored, the checkpoint cost's "before"."""
+    import types
+    import zipfile
+
+    shim = types.ModuleType("zipfile_deflated")
+    shim.__dict__.update(zipfile.__dict__)
+    shim.ZIP_STORED = zipfile.ZIP_DEFLATED
+    return shim
+
+
+def _checkpoint_cost(x, y, directory: str) -> dict:
+    """(x0) ``save_models`` of an MNIST b200 experiment after two iterations,
+    its members stored (as written now) and deflated (as before), in turns:
+    seconds of each and the zips' bytes."""
+    from gan_deeplearning4j_tpu_torch.harness import GanExperiment
+    from gan_deeplearning4j_tpu_torch.utils import serializer
+
+    exp = GanExperiment(_config())
+    for xb, yb in _mnist_batches(x, y, 200, 2):
+        exp.train_iteration(xb, yb)
+    torch.cuda.synchronize()
+    stored = serializer.zipfile
+    out = {"stored_s": [], "deflated_s": [], "stored_bytes": 0, "deflated_bytes": 0}
+    try:
+        for turn in range(4):
+            mode = ("stored", "deflated")[turn % 2]
+            target = os.path.join(directory, f"x0_{turn}")
+            serializer.zipfile = stored if mode == "stored" else _deflated_zipfile()
+            t0 = time.perf_counter()
+            files = exp.save_models(directory=target)
+            out[f"{mode}_s"].append(time.perf_counter() - t0)
+            serializer.zipfile = stored
+            out[f"{mode}_bytes"] = sum(os.path.getsize(f) for f in files)
+            shutil.rmtree(target)
+    finally:
+        serializer.zipfile = stored
+        exp.close()
+    return out
+
+
+def _supervised(x, y, root: str, faults=None, factory=None, max_retries: int = 3):
+    """A ``TrainingSupervisor`` over the MNIST rows at ``X1_STEPS`` /
+    ``X1_PUBLISH_EVERY`` (no backoff sleep)."""
+    from gan_deeplearning4j_tpu_torch.resilience import SupervisorConfig, TrainingSupervisor
+
+    return TrainingSupervisor(_config(), SupervisorConfig(
+        total_steps=X1_STEPS, publish_every=X1_PUBLISH_EVERY, max_retries=max_retries,
+        backoff_base_s=0.0), x, y, store_root=root, faults=faults, sleep=lambda s: None,
+        experiment_factory=factory)
+
+
+def _timed_run(sup) -> dict:
+    t0 = time.perf_counter()
+    out = sup.run()
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _run_costs(out: dict) -> dict:
+    """A supervised run's cost split: ``train_s`` is the host's time in
+    ``train_iteration`` (replays are asynchronous; a publish's copies to the
+    host wait for them)."""
+    keys = ("restore_s", "time_to_first_step_s", "train_s", "publish_s", "publish_count", "wall_s")
+    row = {k: out.get(k) for k in keys}
+    row["checkpoint_overhead_frac"] = out["publish_s"] / (out["train_s"] + out["publish_s"])
+    row["publish_share_of_wall"] = out["publish_s"] / out["wall_s"]
+    return row
+
+
+def _resilience_in_process(x, y, directory: str) -> dict:
+    """(x1) The supervisor in this process on the card: an uninterrupted run
+    (the expected result), a ``raise`` at step 6 (one retry), SIGTERM at the
+    start of step 4 (``preempt``: preempted with a generation at step 5, then a
+    relaunched supervisor completes), the newest generation corrupted
+    (quarantined; the prior one restored; the run completes), and three
+    retries with the card's reserved memory read at each attempt's start.
+    Every completed run must equal the expected digests bit for bit."""
+    import signal
+
+    from gan_deeplearning4j_tpu_torch.harness import GanExperiment
+    from gan_deeplearning4j_tpu_torch.resilience import (
+        CheckpointStore,
+        FaultInjector,
+        FaultSchedule,
+        FaultSpec,
+        corrupt_generation,
+    )
+
+    def root(name):
+        return os.path.join(directory, "x1", name)
+
+    def faults(*specs):
+        return FaultInjector(FaultSchedule([FaultSpec(kind=k, step=s) for k, s in specs]))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    oracle = _timed_run(_supervised(x, y, root("oracle")))
+    gc.collect()
+    after_one = torch.cuda.memory_reserved()
+    want = oracle["state_digests"]
+    retried = _timed_run(_supervised(x, y, root("raise"), faults(("raise", 6))))
+
+    sup = _supervised(x, y, root("preempt"), faults(("preempt", 4)))
+    previous = signal.getsignal(signal.SIGTERM)
+    try:
+        sup.install_signal_handlers()
+        preempted = sup.run()
+    finally:
+        signal.signal(signal.SIGTERM, previous)
+    preempt_gen = CheckpointStore(root("preempt")).latest_valid()
+    resumed = _timed_run(_supervised(x, y, root("preempt")))
+
+    store = CheckpointStore(root("preempt"))
+    newest, prior = store.published()[-1], store.published()[-2]
+    member = corrupt_generation(store, newest, seed=SEED)
+    fallback_sup = _supervised(x, y, root("preempt"))
+    fallback = _timed_run(fallback_sup)
+    restored = [e["generation"] for e in fallback_sup.events if e["event"] == "restore"]
+    ledger = CheckpointStore(root("preempt")).entry(newest)
+
+    reserved_at_start = []
+
+    def factory(cfg):
+        reserved_at_start.append(torch.cuda.memory_reserved())
+        return GanExperiment(cfg)
+
+    three = _timed_run(_supervised(x, y, root("three"), faults(("raise", 2), ("raise", 5), ("raise", 9)),
+                                   factory=factory))
+    gc.collect()
+    after_three = torch.cuda.memory_reserved()
+    growth = [b - a for a, b in zip(reserved_at_start[1:], reserved_at_start[2:])]
+    out = {
+        "expected": _run_costs(oracle),
+        "raise_at_6": {"attempts_used": retried["attempts_used"],
+                       "bit_equal": retried["state_digests"] == want, **_run_costs(retried)},
+        "preempt": {"status": preempted["status"], "steps": preempted["steps"],
+                    "generation_step": preempt_gen.step if preempt_gen else None,
+                    "resumed_start_step": resumed["start_step"],
+                    "resumed_bit_equal": resumed["state_digests"] == want, **_run_costs(resumed)},
+        "corruption": {"corrupted_generation": newest, "member": member, "restored": restored,
+                       "prior": prior, "ledger_status": ledger.get("status"),
+                       "bit_equal": fallback["state_digests"] == want, **_run_costs(fallback)},
+        "three_retries": {"attempts_used": three["attempts_used"],
+                          "bit_equal": three["state_digests"] == want,
+                          "reserved_bytes_at_attempt_start": reserved_at_start,
+                          "growth_between_retries": growth},
+        "reserved_bytes_after_one_attempt": after_one,
+        "reserved_bytes_after_three_retries": after_three,
+    }
+    if (out["raise_at_6"]["attempts_used"] != 1 or not out["raise_at_6"]["bit_equal"]
+            or preempted["status"] != "preempted" or preempted["steps"] != 5
+            or out["preempt"]["generation_step"] != 5 or resumed["status"] != "completed"
+            or resumed["start_step"] != 5 or not out["preempt"]["resumed_bit_equal"]
+            or restored != [prior] or ledger.get("status") != "quarantined"
+            or fallback["status"] != "completed" or not out["corruption"]["bit_equal"]
+            or three["attempts_used"] != 3 or not out["three_retries"]["bit_equal"]
+            or len(reserved_at_start) != 4 or max(growth) > RETRY_MEMORY_SLACK
+            or after_three - after_one > RETRY_MEMORY_SLACK):
+        raise AssertionError(f"(x1) supervised runs on the card: {out}")
+    return out
+
+
+def _drill_workload(x, y, workdir: str) -> dict:
+    """The worker CLI's inputs at full width: ``ExperimentConfig``'s defaults
+    (MNIST b200, fp32, the card) and the synthetic MNIST rows."""
+    os.makedirs(workdir, exist_ok=True)
+    config = os.path.join(workdir, "config.json")
+    _config(output_dir=os.path.join(workdir, "out")).to_json(config)
+    data = os.path.join(workdir, "data.npz")
+    np.savez(data, features=x, labels=y)
+    return {"config": config, "data": data}
+
+
+def _phase_resilience(x, y, directory: str, card: str) -> dict:
+    """(x) Resilience on the card: (x0) the checkpoint cost, stored against
+    deflated; (x1) the supervisor in process; (x2) the single-writer drill
+    through worker processes (``resilience.drill``) at full width, its oracle
+    sent one SIGUSR2; (x3) the mesh drill with two worker processes sharing
+    the card. (x4) is (s)'s alert plane."""
+    from gan_deeplearning4j_tpu_torch.resilience import drill
+
+    out = {"checkpoint_cost": _checkpoint_cost(x, y, directory)}
+    print(json.dumps({"phase": "resilience_checkpoint_cost", **out["checkpoint_cost"], "card": card}))
+    t0 = time.perf_counter()
+    out["in_process"] = _resilience_in_process(x, y, directory)
+    out["in_process"]["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"phase": "resilience_in_process", **out["in_process"], "card": card}))
+
+    t0 = time.perf_counter()
+    workdir = os.path.join(directory, "x2")
+    workload = _drill_workload(x, y, workdir)
+    trace_dir = os.path.join(workdir, "traces")
+    single = drill.run_single_host_drill(workload, workdir, X2_STEPS, X2_PUBLISH_EVERY, SEED,
+                                         timeout_s=DRILL_WORKER_TIMEOUT_S, trace_dir=trace_dir)
+    results = single.get("results", {})
+    out["drill"] = {"ok": single["ok"], "invariants": single["invariants"],
+                    "config": single.get("config"), "oracle": results.get("oracle"),
+                    "kill_recover": results.get("kill_recover"),
+                    "corruption": results.get("corruption"),
+                    "signal_capture": results.get("signal_capture"),
+                    "phase_s": time.perf_counter() - t0}
+    print(json.dumps({"phase": "resilience_drill", **out["drill"], "card": card}))
+    capture = out["drill"]["signal_capture"] or {}
+    if (not single["ok"] or single["config"]["platform"] != "gpu"
+            or capture.get("kernel_events", 0) <= 0):
+        raise AssertionError(f"(x2) the drill on the card: {out['drill']}")
+
+    t0 = time.perf_counter()
+    workdir = os.path.join(directory, "x3")
+    mesh = drill.run_multihost_drill(_drill_workload(x, y, workdir), workdir, 2, X3_STEPS,
+                                     X3_PUBLISH_EVERY, SEED, mesh_timeout=X3_MESH_TIMEOUT_S,
+                                     timeout_s=DRILL_WORKER_TIMEOUT_S)
+    results = mesh.get("results", {})
+    out["mesh_drill"] = {"ok": mesh["ok"], "invariants": mesh["invariants"],
+                         "config": mesh.get("config"), "oracle": results.get("oracle"),
+                         "kill_recover": results.get("kill_recover"),
+                         "commit_window": results.get("commit_window"),
+                         "elastic": results.get("elastic"), "phase_s": time.perf_counter() - t0}
+    print(json.dumps({"phase": "resilience_mesh_drill", **out["mesh_drill"], "card": card}))
+    if not mesh["ok"] or mesh["config"]["platform"] != "gpu":
+        raise AssertionError(f"(x3) the mesh drill on the card: {out['mesh_drill']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 #: the training phases ``--only`` can run by themselves: (x, y, directory, card)
 _TRAINING_ONLY = {"windows": lambda *a: _phase_windows(*a),
                   "capture_timing": lambda x, y, d, card: _phase_capture_timing(x, y, card),
                   "zoo": lambda *a: _phase_zoo(*a),
                   "parallel": lambda *a: _phase_parallel(*a),
-                  "eval": lambda *a: _phase_eval(*a)}
+                  "eval": lambda *a: _phase_eval(*a),
+                  "resilience": lambda *a: _phase_resilience(*a)}
 
 
 def _run_only(names, card: str) -> int:
@@ -3549,7 +3813,8 @@ def main(argv=None) -> int:
                          ("reload", lambda: _phase_reload(directory, directory, card)),
                          ("zoo", lambda: _phase_zoo(x, y, directory, card)),
                          ("parallel", lambda: _phase_parallel(x, y, directory, card)),
-                         ("eval", lambda: _phase_eval(x, y, directory, card))):
+                         ("eval", lambda: _phase_eval(x, y, directory, card)),
+                         ("resilience", lambda: _phase_resilience(x, y, directory, card))):
             t0 = time.perf_counter()
             try:
                 families[key] = run()
@@ -3558,7 +3823,8 @@ def main(argv=None) -> int:
                 failed.append(key)
             seconds[key] = time.perf_counter() - t0
     if failed:
-        print(f"chip_smoke: family / bf16 / window / int8 / serving / zoo / parallel / eval phases "
+        print(f"chip_smoke: family / bf16 / window / int8 / serving / zoo / parallel / eval / "
+              f"resilience phases "
               f"failed: {failed}",
               file=sys.stderr)
         return 1

@@ -102,8 +102,8 @@ torchrun set none):
   checkpoint, and ``load_models`` restores a directory of such shards from
   any M at any world size.
 
-Not ported yet, raising with its ROADMAP.md item: publishing into a
-``CheckpointStore`` ('The operations planes').
+``close()`` releases the captured graphs and their memory pools (the
+supervisor calls it when an attempt ends, ``resilience/supervisor.py``).
 """
 
 from __future__ import annotations
@@ -166,7 +166,6 @@ logger = logging.getLogger(__name__)
 # one shard of a mesh-coordinated checkpoint (the JAX package's
 # resilience/mesh.py): <prefix>_state_shard-<K>-of-<M>.zip
 _MESH_SHARD_RE = re.compile(r"_state_shard-(\d{4})-of-(\d{4})\.zip$")
-_OPERATIONS_WAITS = "ROADMAP.md queue 1, 'The operations planes'"
 
 
 def latent_grid(n: int, z_size: int = 2) -> np.ndarray:
@@ -989,47 +988,77 @@ class GanExperiment:
         a ``serving.json`` manifest key for key as the JAX package writes
         it, so either package's ``ServingEngine.from_bundle`` loads the
         bundle; a generator-only bundle has ``classifier`` and
-        ``feature_vertex`` null. Every file lands by temp file and
-        rename."""
+        ``feature_vertex`` null. Every file lands by temp file and rename.
+
+        ``store`` (a ``resilience.CheckpointStore``) publishes the bundle as
+        a digest-verified store generation of ``kind: "serving"``, whose
+        manifest's ``generation`` is the store's number (what the reload
+        plane keys on); a directory publish is unversioned (``generation``
+        None). On a mesh only rank 0 writes."""
         if store is not None:
-            raise NotImplementedError(
-                f"publishing into a CheckpointStore is not ported yet: {_OPERATIONS_WAITS}"
-            )
+            if not self._writes:
+                return {**self._serving_manifest(None), "directory": None}
+            # single-writer store: the number reserved here is the number
+            # publish() assigns; the check makes a concurrent writer loud
+            number = store.next_number()
+            result: Dict = {}
+            generation = store.publish(
+                lambda d: result.update(self._write_serving_bundle(d, generation=number)),
+                step=self._publish_step(), extra={"kind": "serving"})
+            if generation.number != number:
+                raise RuntimeError(f"serving bundle labeled generation {number} but the store "
+                                   f"assigned {generation.number} — concurrent writer?")
+            return {**result, "directory": generation.path}
+        directory = directory or os.path.join(self.config.output_dir, "serving")
+        if not self._writes:
+            return {**self._serving_manifest(None), "directory": directory}
+        os.makedirs(directory, exist_ok=True)
+        return {**self._write_serving_bundle(directory, generation=None), "directory": directory}
+
+    def _serving_manifest(self, generation: Optional[int]) -> Dict:
+        """The ``serving.json`` of this experiment's bundle."""
         cfg = self.config
-        directory = directory or os.path.join(cfg.output_dir, "serving")
-        writes = self._writes
-        if writes:
-            os.makedirs(directory, exist_ok=True)
-        gen_name = f"{cfg.file_prefix}_gen_serving.zip"
-        if writes:
-            write_model(os.path.join(directory, gen_name), self.gen, self.gen_params, save_updater=False)
         cv_name = feature_vertex = None
         if self.cv is not None:
             cv_name = f"{cfg.file_prefix}_CV_serving.zip"
-            if writes:
-                write_model(os.path.join(directory, cv_name), self.cv, self.cv_state, save_updater=False)
             # the deepest dis-derived layer: the classifier's transfer features
             feature_vertex = list(self.family.dis_to_cv.values())[-1]
         manifest = {
             "format_version": 1,
             "family": self.family.name,
-            "generator": gen_name,
+            "generator": f"{cfg.file_prefix}_gen_serving.zip",
             "classifier": cv_name,
             "feature_vertex": feature_vertex,
             "z_size": int(self.model_cfg.z_size),
             "num_features": int(cfg.num_features),
             "num_classes": int(cfg.num_classes),
             "step": self._publish_step(),
-            "generation": None,
+            "generation": generation,
         }
         from gan_deeplearning4j_tpu_torch.zoo.manifest import scenario_from_config
 
         scenario = scenario_from_config(cfg)
         if scenario is not None:
             manifest["zoo"] = scenario.to_dict()
-        if writes:
-            write_bundle_manifest(directory, manifest)
-        return {**manifest, "directory": directory}
+        return manifest
+
+    def _write_serving_bundle(self, directory: str, generation: Optional[int]) -> Dict:
+        """Write the gen (and CV) serving checkpoints and ``serving.json``
+        into ``directory``; returns the manifest."""
+        manifest = self._serving_manifest(generation)
+        write_model(os.path.join(directory, manifest["generator"]), self.gen, self.gen_params,
+                    save_updater=False)
+        if manifest["classifier"] is not None:
+            write_model(os.path.join(directory, manifest["classifier"]), self.cv, self.cv_state,
+                        save_updater=False)
+        write_bundle_manifest(directory, manifest)
+        return manifest
+
+    def close(self) -> None:
+        """Release the captured graphs and, on the card, their memory pools
+        (``CapturedIterations.close``). The states stay usable; a later
+        window captures anew."""
+        self.graphs.close()
 
     # -- the loop ---------------------------------------------------------
     def _window_limit(self, have_predictions: bool) -> int:

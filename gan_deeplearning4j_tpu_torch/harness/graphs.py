@@ -57,12 +57,15 @@ cannot hold, so an experiment on a gloo mesh builds this object with
 ``captured=False``: chosen from the backend when the experiment is made,
 not a fallback taken when a capture fails.
 
-Capture on the card: the body runs ``WARMUP_RUNS`` times on a side stream
-without its write-back (the first run shows the target layout; nothing
-trains, so nothing needs restoring), then ``torch.cuda.graph`` captures
-body and write-back on that stream into a private memory pool, under the
-process-wide capture lock (``runtime/capture.py``; serving engines capture
-in the same process) in ``"thread_local"`` mode, with Python's cyclic
+Capture on the card: the body runs ``WARMUP_RUNS`` times on the process's
+side stream for the device (one for every experiment: cuBLAS keeps a
+workspace for each stream it ran on until the process ends) without its
+write-back (the first run shows the target layout; nothing trains, so
+nothing needs restoring), then ``torch.cuda.graph`` captures body and
+write-back on that stream into a private memory pool. Warmup and capture
+hold the process-wide capture lock (``runtime/capture.py``; serving
+engines capture in the same process); the capture runs in
+``"thread_local"`` mode, with Python's cyclic
 collector run before and held off during it (a graph of an unreachable
 experiment destroyed mid-capture ends the capture). A capture
 that fails raises; there is no eager fallback. ``capture_counts`` counts
@@ -78,7 +81,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from gan_deeplearning4j_tpu_torch.parallel.trainer import TrainState
-from gan_deeplearning4j_tpu_torch.runtime.capture import CAPTURE_ERROR_MODE, capture_guard
+from gan_deeplearning4j_tpu_torch.runtime.capture import CAPTURE_ERROR_MODE, CAPTURE_LOCK, capture_guard
 
 Body = Callable[[Dict, Dict[str, torch.Tensor]], Tuple[Dict, torch.Tensor]]
 
@@ -158,6 +161,22 @@ class _Layout:
         return written
 
 
+#: the one side stream per device that every capture warms up and captures on
+_SIDE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _side_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The process's capture stream on ``device``. One for all experiments:
+    cuBLAS keeps a workspace for every (handle, stream) pair it has run on
+    until the process ends (captured graphs hold its address), so a stream
+    per experiment would grow the card's reserved memory with every
+    experiment made, a supervisor's retries included."""
+    stream = _SIDE_STREAMS.get(device)
+    if stream is None:
+        stream = _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return stream
+
+
 @dataclasses.dataclass
 class _Entry:
     """One body at one input shape, reading ``source``."""
@@ -191,13 +210,28 @@ class CapturedIterations:
         self.captured = device.type == "cuda" if captured is None else captured
         self._layouts: Dict[tuple, _Layout] = {}
         self._entries: Dict[tuple, _Entry] = {}
-        self._stream = None
         self.capture_counts: Dict[str, int] = {}
         self.runs = 0
         self.copies_in = 0
 
     def entry_stats(self) -> Dict[str, Dict[str, float]]:
         return {e.name: {"runs": e.runs, **e.stats} for e in self._entries.values()}
+
+    def close(self) -> None:
+        """Drop every entry and layout, destroy the captured graphs and, on
+        the card, return their private pools to the device, under the
+        capture lock (a graph's destruction must not land inside another
+        thread's capture). The trees in hand stay valid; a later run
+        captures anew."""
+        with CAPTURE_LOCK:
+            entries, self._entries, self._layouts = self._entries, {}, {}
+            self.capture_counts = {}
+            for entry in entries.values():
+                if entry.graph is not None:
+                    entry.graph.reset()
+            entries.clear()
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
 
     # -- layouts and entries ---------------------------------------------------
     def _layout(self, structure, leaves) -> _Layout:
@@ -268,29 +302,30 @@ class CapturedIterations:
             raise RuntimeError(f"captured twice: {entry.name}")
         self.capture_counts[entry.name] = 1
         t0 = time.perf_counter()
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-        side = self._stream
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            first = self._apply(entry, steps)
-            for _ in range(WARMUP_RUNS - 1):
-                self._apply(entry, steps)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        leaves, out_steps, structure, _ = first
-        # the target's buffers are allocated on the stream that replays
-        self._bind_target(entry, structure, leaves, steps, out_steps)
-        del first, leaves
-        graph = torch.cuda.CUDAGraph()
-        # an unreachable experiment's graph that the cyclic collector
-        # destroyed mid-capture would end the capture: collect first, and
-        # not during it; one capture at a time in the process
-        with capture_guard():
-            with torch.cuda.graph(graph, stream=side, capture_error_mode=CAPTURE_ERROR_MODE):
-                reserved = torch.cuda.memory_reserved(self.device)
-                leaves, _, _, row = self._apply(entry, steps)
-                self._write_back(entry, leaves, row)
-            del leaves, row
+        # the side stream is the process's: warmup and capture hold the
+        # capture lock, so no other experiment's work lands on it meanwhile
+        with CAPTURE_LOCK:
+            side = _side_stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                first = self._apply(entry, steps)
+                for _ in range(WARMUP_RUNS - 1):
+                    self._apply(entry, steps)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            leaves, out_steps, structure, _ = first
+            # the target's buffers are allocated on the stream that replays
+            self._bind_target(entry, structure, leaves, steps, out_steps)
+            del first, leaves
+            graph = torch.cuda.CUDAGraph()
+            # an unreachable experiment's graph that the cyclic collector
+            # destroyed mid-capture would end the capture: collect first,
+            # and not during it; one capture at a time in the process
+            with capture_guard():
+                with torch.cuda.graph(graph, stream=side, capture_error_mode=CAPTURE_ERROR_MODE):
+                    reserved = torch.cuda.memory_reserved(self.device)
+                    leaves, _, _, row = self._apply(entry, steps)
+                    self._write_back(entry, leaves, row)
+                del leaves, row
         entry.graph = graph
         torch.cuda.synchronize(self.device)
         entry.stats = {"warmup_and_capture_s": time.perf_counter() - t0,

@@ -102,10 +102,11 @@ def train_state_from_numpy(state, device: DeviceLike, *, graph):
 
     dev = resolve_device(device)
     params = params_from_numpy(part("params"), dev, graph=graph)
-    # the expected slots, shapes and dtypes, without allocating them
-    want = GraphOptimizer(graph).init(
-        {layer: {n: p.to("meta") for n, p in lp.items()} for layer, lp in params.items()}
-    )
+    # the expected slots, shapes and dtypes: a fresh updater state, dropped
+    # after the checks (on "meta" tensors its ops would run torch's Python
+    # reference decompositions, whose first use imports sympy: seconds of
+    # a relaunched worker's first restore)
+    want = GraphOptimizer(graph).init(params)
     got = part("opt_state")
     opt_state: Dict = {}
     for layer in sorted(set(want) | set(got)):

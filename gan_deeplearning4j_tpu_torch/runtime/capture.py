@@ -31,6 +31,9 @@ CAPTURE_LOCK = threading.RLock()
 #: the mode every capture in the port runs in
 CAPTURE_ERROR_MODE = "thread_local"
 
+#: per thread, how deep it is inside :func:`capture_guard`
+_guarded = threading.local()
+
 
 @contextlib.contextmanager
 def capture_guard():
@@ -40,8 +43,17 @@ def capture_guard():
         gc.collect()
         collecting = gc.isenabled()
         gc.disable()
+        _guarded.depth = getattr(_guarded, "depth", 0) + 1
         try:
             yield
         finally:
+            _guarded.depth -= 1
             if collecting:
                 gc.enable()
+
+
+def capturing() -> bool:
+    """Whether the calling thread is inside :func:`capture_guard` (a signal
+    handler, which Python runs on the main thread between any two
+    bytecodes, asks this before it does CUDA work)."""
+    return getattr(_guarded, "depth", 0) > 0

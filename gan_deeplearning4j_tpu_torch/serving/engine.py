@@ -591,7 +591,8 @@ class ServingEngine:
 
         key = (kind, bucket)
         with capture_guard():
-            cap = self._captures.get(key)
+            with self._lock:
+                cap = self._captures.get(key)
             if cap is not None:
                 return cap
             try:
@@ -785,7 +786,9 @@ class ServingEngine:
             self._note_run(kind, bucket)
             return self._forward(kind, buf.tensor), None
         if self.captured:
-            cap = self._captures.get((kind, bucket)) or self._capture(kind, bucket)
+            with self._lock:
+                cap = self._captures.get((kind, bucket))
+            cap = cap or self._capture(kind, bucket)
             host = torch.empty(cap.y.shape, dtype=cap.y.dtype, pin_memory=True)
             event = torch.cuda.Event()
             with self._replay_lock, torch.cuda.stream(self._stream):

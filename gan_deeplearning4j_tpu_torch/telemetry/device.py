@@ -5,9 +5,14 @@ The span tracer (:mod:`.trace`) answers *which stage* took the time; the
 device profiler answers *what the card did inside it*: which kernels ran,
 for how long, and how busy the card was. A capture is expensive (a large
 trace, some interference), so it is never ambient: a live process exposes
-it as a momentary hook, the serving API's ``POST /debug/trace?ms=N``
-(``serving/service.py``), which dumps one bounded capture into an
-artifacts directory and returns to normal operation.
+it as a momentary hook —
+
+- the serving API's ``POST /debug/trace?ms=N`` (``serving/service.py``), and
+- ``SIGUSR2`` on the supervised worker CLI (``resilience/__main__.py``,
+  :func:`install_signal_capture`) —
+
+each dumping one bounded capture into an artifacts directory and
+returning to normal operation.
 
 A capture records the host's operators and, when a card is present, its
 kernels and copies (``ProfilerActivity.CPU`` and ``.CUDA``), and writes a
@@ -27,14 +32,19 @@ from __future__ import annotations
 import itertools
 import logging
 import os
+import signal
 import threading
 import time
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 logger = logging.getLogger(__name__)
 
 _capture_lock = threading.Lock()
 _capture_ids = itertools.count(1)
+#: the capture threads SIGUSR2 started (:func:`join_signal_captures`)
+_signal_captures: List[threading.Thread] = []
+#: whether :func:`prime_profiler` ran in this process
+_primed = False
 
 #: the Chrome trace a capture writes into its directory
 TRACE_NAME = "trace.json"
@@ -69,6 +79,10 @@ def _capture_locked(out: str, duration_ms: int) -> str:
         prof.start()
     try:
         time.sleep(duration_ms / 1000.0)
+        if torch.cuda.is_available():
+            # the window's device work ends inside the session, so its
+            # kernel records are complete when it stops
+            torch.cuda.synchronize()
     finally:
         with CAPTURE_LOCK:
             prof.stop()
@@ -94,6 +108,81 @@ def capture_device_trace(artifacts_dir: str, duration_ms: int = 1000,
         return _capture_locked(out, duration_ms)
     finally:
         _capture_lock.release()
+
+
+def prime_profiler() -> None:
+    """Start and stop one empty profiler session on the calling thread, once
+    per process, when a card is present. The profiler sets up its CUDA
+    tracing on its first session, and only on the thread that registered its
+    client (the main thread, which loaded torch): a first session started on
+    another thread records no device activity at all ("External init
+    callback must run in same thread as registerClient", on the H100). On
+    the card it takes seconds, so it runs when a capture is first asked
+    for, not when a process starts."""
+    global _primed
+    if _primed:
+        return
+    import torch
+
+    if torch.cuda.is_available():
+        from gan_deeplearning4j_tpu_torch.runtime.capture import CAPTURE_LOCK
+
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                  torch.profiler.ProfilerActivity.CUDA])
+        with CAPTURE_LOCK:
+            prof.start()
+            prof.stop()
+    _primed = True
+
+
+def install_signal_capture(artifacts_dir: str,
+                           duration_ms: int = 1000,
+                           signum: int = signal.SIGUSR2) -> None:
+    """SIGUSR2 → one background device capture. The handler only spawns a
+    daemon thread (signal handlers must not block for the capture window,
+    and Python runs them on the main thread, which may be inside a CUDA-graph
+    capture: the capture thread's profiler start waits on the process
+    capture lock); a signal landing mid-capture is logged and dropped
+    (:class:`CaptureBusy`) — a stuck operator mashing SIGUSR2 must not
+    stack captures. The first signal primes the profiler
+    (:func:`prime_profiler`) in the handler, on the main thread, before the
+    capture thread starts: that stalls the main thread once, for seconds; a
+    first signal landing inside a CUDA-graph capture on the main thread is
+    logged and dropped instead."""
+    from gan_deeplearning4j_tpu_torch.runtime.capture import capturing
+
+    def _worker() -> None:
+        try:
+            capture_device_trace(artifacts_dir, duration_ms)
+        except CaptureBusy:
+            logger.warning("SIGUSR2 ignored: a device capture is running")
+        except Exception:
+            logger.exception("SIGUSR2 device capture failed")
+
+    def _handler(signo, frame) -> None:
+        if not _primed:
+            if capturing():
+                logger.warning("SIGUSR2 ignored: a CUDA graph is being captured")
+                return
+            prime_profiler()
+        thread = threading.Thread(
+            target=_worker, name="device-trace-capture", daemon=True)
+        _signal_captures.append(thread)
+        thread.start()
+
+    signal.signal(signum, _handler)
+    logger.info("signal %d captures %d ms device traces into %s",
+                signum, duration_ms, artifacts_dir)
+
+
+def join_signal_captures(timeout_s: float = 120.0) -> None:
+    """Wait (bounded) for the captures SIGUSR2 started. A process that exits
+    mid-capture kills the profiler's threads in the middle of a trace (on
+    the card a worker died by SIGSEGV that way) and loses the trace: the
+    worker CLI calls this before it exits."""
+    deadline = time.monotonic() + timeout_s
+    for thread in list(_signal_captures):
+        thread.join(max(0.0, deadline - time.monotonic()))
 
 
 def capture_async(artifacts_dir: str, duration_ms: int = 1000

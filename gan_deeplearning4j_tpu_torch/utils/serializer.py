@@ -162,13 +162,15 @@ def shard_keys(keys, shard_index: int, shard_count: int):
 
 def _write_zip(path: str, members) -> None:
     """``members`` ``[(name, bytes)]`` into a zip at ``path``, by temp file,
-    fsync and rename."""
+    fsync and rename. Members are stored, not deflated: float arrays barely
+    compress, and deflating them cost seconds a checkpoint. ``zipfile`` (the JAX package's reader too) reads stored
+    members, and the member digests are of the uncompressed bytes."""
     directory = os.path.dirname(os.path.abspath(path))
     os.makedirs(directory, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
     try:
         with os.fdopen(fd, "wb") as fh:
-            with zipfile.ZipFile(fh, "w", zipfile.ZIP_DEFLATED) as zf:
+            with zipfile.ZipFile(fh, "w", zipfile.ZIP_STORED) as zf:
                 for name, data in members:
                     zf.writestr(name, data)
             fh.flush()

@@ -97,6 +97,34 @@ def test_port_written_classifier_reads_in_jax(tmp_path):
     assert torch.equal(params2["dis_batch"]["var"], params["dis_batch"]["var"])
 
 
+
+def test_stored_port_checkpoints_load_in_jax(tmp_path):
+    """The port writes checkpoint and mesh-shard members ``ZIP_STORED``
+    (float arrays do not compress); the JAX reader loads both, and the
+    member digests are of the same uncompressed bytes."""
+    graph = _tiny_graph()
+    tree = _random_tree(graph.param_shapes(), seed=9)
+    params = {k: {n: torch.from_numpy(v) for n, v in leaves.items()} for k, leaves in tree.items()}
+    state = types.SimpleNamespace(params=params, opt_state={"h": {"W": {"cache": params["h"]["W"] * 2}}},
+                                  step=3)
+    path = str(tmp_path / "m.zip")
+    pt_ser.write_model(path, graph, state)
+    shard = str(tmp_path / "shard.zip")
+    flat = {"dis/params/h/W": params["h"]["W"], "dis/step": np.asarray(3, np.int32)}
+    pt_ser.write_state_shard(shard, flat, meta={"shard_index": 0, "shard_count": 1})
+    for name in (path, shard):
+        with zipfile.ZipFile(name) as zf:
+            assert {i.compress_type for i in zf.infolist()} == {zipfile.ZIP_STORED}
+    _, jax_params, jax_opt, step = jax_ser.read_model(path)
+    assert step == 3
+    for layer, leaves in tree.items():
+        for name, value in leaves.items():
+            assert np.array_equal(np.asarray(jax_params[layer][name]), value)
+    np.testing.assert_array_equal(np.asarray(jax_opt["h"]["W"]["cache"]), tree["h"]["W"] * 2)
+    arrays, meta = jax_ser.read_state_shard(shard)
+    assert np.array_equal(arrays["dis/params/h/W"], tree["h"]["W"])
+    assert int(arrays["dis/step"]) == 3 and meta["shard_count"] == 1
+
 def test_member_digest_matches_jax():
     assert pt_ser.member_digest(b"abc") == jax_ser.member_digest(b"abc")
 

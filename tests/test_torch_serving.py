@@ -367,6 +367,13 @@ def test_importing_the_port_loads_no_jax():
         "import gan_deeplearning4j_tpu_torch.deploy.__main__\n"
         "import gan_deeplearning4j_tpu_torch.resilience\n"
         "import gan_deeplearning4j_tpu_torch.resilience.store\n"
+        "import gan_deeplearning4j_tpu_torch.resilience.faults\n"
+        "import gan_deeplearning4j_tpu_torch.resilience.mesh\n"
+        "import gan_deeplearning4j_tpu_torch.resilience.supervisor\n"
+        "import gan_deeplearning4j_tpu_torch.resilience.__main__\n"
+        "import gan_deeplearning4j_tpu_torch.resilience.drill\n"
+        "import gan_deeplearning4j_tpu_torch.telemetry.aggregate\n"
+        "import gan_deeplearning4j_tpu_torch.telemetry.alerts\n"
         "import gan_deeplearning4j_tpu_torch.telemetry.slo\n"
         "import gan_deeplearning4j_tpu_torch.telemetry.device\n"
         "import gan_deeplearning4j_tpu_torch.runtime.capture\n"

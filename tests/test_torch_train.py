@@ -498,8 +498,13 @@ def test_unported_entry_points_raise_and_the_default_device_is_the_card(jax_exp,
     pexp = _port_experiment(init)
     with pytest.raises(TypeError, match="DataMesh"):
         GraphTrainer(pexp.dis, mesh=object())
-    with pytest.raises(NotImplementedError, match="'The operations planes'"):
-        pexp.publish_for_serving(str(tmp_path), store=object())
+    # publishing into a store is ported: a generation of kind "serving"
+    from gan_deeplearning4j_tpu_torch.resilience import CheckpointStore
+
+    store = CheckpointStore(str(tmp_path / "store"))
+    published = pexp.publish_for_serving(store=store)
+    assert published["generation"] == 0
+    assert store.latest_valid().manifest["kind"] == "serving"
     # a mesh-shard directory (here one shard of one) loads
     pexp.train_iteration(*_data(B, seed=5))
     shards = tmp_path / "shards"
