@@ -14,22 +14,25 @@ train→serve loop closed.
   requests shed or lost;
 - ``python -m gan_deeplearning4j_tpu_torch.deploy probe`` — one bundle's
   quality probe in its own process.
+
+The namespace is lazy (PEP 562): importing it imports no ``torch``, so a
+process that only decides (the fleet's router and manager) needs none.
 """
 
-from gan_deeplearning4j_tpu_torch.deploy.canary import (
-    CanaryDecision,
-    CanaryGate,
-    CanaryThresholds,
-    classifier_from_bundle,
-    compare_probes,
-    feature_fn_from_checkpoint,
-)
-from gan_deeplearning4j_tpu_torch.deploy.reloader import (
-    STATES,
-    ReloadBusy,
-    ReloadController,
-)
-from gan_deeplearning4j_tpu_torch.deploy.watcher import BundleCandidate, StoreWatcher
+# name -> the module it is imported from on first use
+_LAZY_EXPORTS = {
+    "CanaryDecision": "gan_deeplearning4j_tpu_torch.deploy.canary",
+    "CanaryGate": "gan_deeplearning4j_tpu_torch.deploy.canary",
+    "CanaryThresholds": "gan_deeplearning4j_tpu_torch.deploy.canary",
+    "classifier_from_bundle": "gan_deeplearning4j_tpu_torch.deploy.canary",
+    "compare_probes": "gan_deeplearning4j_tpu_torch.deploy.canary",
+    "feature_fn_from_checkpoint": "gan_deeplearning4j_tpu_torch.deploy.canary",
+    "STATES": "gan_deeplearning4j_tpu_torch.deploy.reloader",
+    "ReloadBusy": "gan_deeplearning4j_tpu_torch.deploy.reloader",
+    "ReloadController": "gan_deeplearning4j_tpu_torch.deploy.reloader",
+    "BundleCandidate": "gan_deeplearning4j_tpu_torch.deploy.watcher",
+    "StoreWatcher": "gan_deeplearning4j_tpu_torch.deploy.watcher",
+}
 
 __all__ = [
     "BundleCandidate",
@@ -44,3 +47,19 @@ __all__ = [
     "compare_probes",
     "feature_fn_from_checkpoint",
 ]
+
+
+def __getattr__(name):
+    try:
+        module_name = _LAZY_EXPORTS[name]
+    except KeyError:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}") from None
+    import importlib
+
+    value = getattr(importlib.import_module(module_name), name)
+    globals()[name] = value  # cached: __getattr__ runs once per name
+    return value
+
+
+def __dir__():
+    return sorted({*globals(), *_LAZY_EXPORTS})

@@ -68,6 +68,8 @@ def _probe(args) -> dict:
     )
     probe["generation"] = engine.generation
     probe["feature"] = args.feature
+    # where the probe ran: the fleet holds a probe on the card to "gpu"
+    probe["platform"] = engine.platform
     return probe
 
 

@@ -2,7 +2,10 @@
 
 The PyTorch port's copy of ``gan_deeplearning4j_tpu/deploy/reloader.py`` (plain
 Python, no JAX), kept inside the port so that it imports nothing of the
-JAX package.
+JAX package. One addition: :meth:`ReloadController.status` (the
+``/healthz`` "reload" block) carries the last canary decision's
+``canary`` record (generation, verdict, both probes' FID and accuracy), so
+a drill can log what the gate saw at each swap.
 
 One background thread runs the reload cycle against a live
 ``serving.InferenceService``:
@@ -158,6 +161,7 @@ class ReloadController:
         self._adopted = 0
         self._rejected = 0
         self._last_error: Optional[str] = None
+        self._last_canary: Optional[dict] = None
         self.events: list = []  # swap/adopt/reject records, newest last
         registry = get_registry()
         self._c_adoptions = registry.counter(
@@ -211,6 +215,7 @@ class ReloadController:
                 "adopted": self._adopted,
                 "rejected": self._rejected,
                 "last_error": self._last_error,
+                "canary": self._last_canary,
             }
 
     def _transition(self, state: str, candidate_generation) -> None:
@@ -411,6 +416,13 @@ class ReloadController:
             self._transition("canary", gen)
             with TRACER.span("deploy.canary", generation=gen):
                 decision = self.canary.evaluate(engine, live)
+            cand, inc = decision.candidate or {}, decision.incumbent or {}
+            with self._lock:
+                self._last_canary = {
+                    "generation": gen, "passed": decision.passed,
+                    "fid": cand.get("fid"), "accuracy": cand.get("accuracy"),
+                    "incumbent_fid": inc.get("fid"),
+                    "incumbent_accuracy": inc.get("accuracy")}
             if not decision.passed:
                 TRACER.instant("deploy.canary_reject", {
                     "generation": gen, "reason": decision.reason})

@@ -94,7 +94,17 @@ def fid_from_stats(real: FeatureStats, fake: FeatureStats, eps: float = 1e-6) ->
     """Fréchet distance between the two Gaussians. Both covariances are
     regularised by ``eps·I``, and the cross term is taken as
     ``sqrt(sqrt(A)·B·sqrt(A))``, symmetric PSD with the trace of
-    ``sqrtm(A·B)``."""
+    ``sqrtm(A·B)``.
+
+    A Gaussian with a non-finite mean or covariance (a generator that
+    diverged to NaN or inf) has no distance: the answer is NaN, which no
+    canary bar admits. The JAX package hands such a matrix to LAPACK's
+    ``eigh``, which returns NaNs at some sizes and raises ("Eigenvalues did
+    not converge") at others, so its canary rejects a diverged candidate or
+    errors on it, depending on the width; finite statistics give the JAX
+    package's distance."""
+    if not all(np.isfinite(a).all() for a in (real.mean, real.cov, fake.mean, fake.cov)):
+        return float("nan")
     diff = real.mean - fake.mean
     offset = eps * np.eye(real.cov.shape[0])
     sr = _sqrtm_psd(real.cov + offset)

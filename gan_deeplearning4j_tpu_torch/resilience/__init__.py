@@ -18,35 +18,34 @@ preemptible workers.
   worker CLI, and ``python -m gan_deeplearning4j_tpu_torch.resilience.drill``
   — the drill that kills, relaunches and corrupts it.
 
-Still to port: the fleet and the fleet and reload drills (ROADMAP.md
-queue 1, 'The operations planes').
+The serving side of the operations planes lives beside it:
+``fleet/`` (router, health, autoscaler, manager, the fleet CLI and its
+drill) and ``deploy/drill.py`` (the reload drill).
+
+The namespace is lazy (PEP 562): importing it imports no ``torch``, so
+the store and its watchers load without it (the fleet's router process).
 """
 
-from gan_deeplearning4j_tpu_torch.resilience.faults import (
-    FaultInjector,
-    FaultSchedule,
-    FaultSpec,
-    InjectedFault,
-    corrupt_generation,
-)
-from gan_deeplearning4j_tpu_torch.resilience.mesh import (
-    MeshCoordinator,
-    MeshProtocolError,
-    MeshTimeout,
-    mesh_digest,
-)
-from gan_deeplearning4j_tpu_torch.resilience.store import (
-    CheckpointStore,
-    Generation,
-    gen_dirname,
-    tree_digest,
-)
-from gan_deeplearning4j_tpu_torch.resilience.supervisor import (
-    RetryBudgetExceeded,
-    SupervisorConfig,
-    TrainingSupervisor,
-    UnsupportedExperimentError,
-)
+# name -> the module it is imported from on first use
+_LAZY_EXPORTS = {
+    "FaultInjector": "gan_deeplearning4j_tpu_torch.resilience.faults",
+    "FaultSchedule": "gan_deeplearning4j_tpu_torch.resilience.faults",
+    "FaultSpec": "gan_deeplearning4j_tpu_torch.resilience.faults",
+    "InjectedFault": "gan_deeplearning4j_tpu_torch.resilience.faults",
+    "corrupt_generation": "gan_deeplearning4j_tpu_torch.resilience.faults",
+    "MeshCoordinator": "gan_deeplearning4j_tpu_torch.resilience.mesh",
+    "MeshProtocolError": "gan_deeplearning4j_tpu_torch.resilience.mesh",
+    "MeshTimeout": "gan_deeplearning4j_tpu_torch.resilience.mesh",
+    "mesh_digest": "gan_deeplearning4j_tpu_torch.resilience.mesh",
+    "CheckpointStore": "gan_deeplearning4j_tpu_torch.resilience.store",
+    "Generation": "gan_deeplearning4j_tpu_torch.resilience.store",
+    "gen_dirname": "gan_deeplearning4j_tpu_torch.resilience.store",
+    "tree_digest": "gan_deeplearning4j_tpu_torch.resilience.store",
+    "RetryBudgetExceeded": "gan_deeplearning4j_tpu_torch.resilience.supervisor",
+    "SupervisorConfig": "gan_deeplearning4j_tpu_torch.resilience.supervisor",
+    "TrainingSupervisor": "gan_deeplearning4j_tpu_torch.resilience.supervisor",
+    "UnsupportedExperimentError": "gan_deeplearning4j_tpu_torch.resilience.supervisor",
+}
 
 __all__ = [
     "CheckpointStore",
@@ -67,3 +66,19 @@ __all__ = [
     "TrainingSupervisor",
     "UnsupportedExperimentError",
 ]
+
+
+def __getattr__(name):
+    try:
+        module_name = _LAZY_EXPORTS[name]
+    except KeyError:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}") from None
+    import importlib
+
+    value = getattr(importlib.import_module(module_name), name)
+    globals()[name] = value  # cached: __getattr__ runs once per name
+    return value
+
+
+def __dir__():
+    return sorted({*globals(), *_LAZY_EXPORTS})

@@ -187,6 +187,11 @@ def main(argv=None) -> int:
         # carries a registry snapshot, so the drill's BENCH record quotes
         # the same series a scraper would
         summary["telemetry"] = get_registry().snapshot()
+        # where the steps ran, observed (a CUDA context exists only where
+        # the card was used): the fleet and reload drills hold it to "gpu"
+        import torch
+
+        summary["platform"] = "gpu" if torch.cuda.is_initialized() else "cpu"
         text = json.dumps(summary, indent=2, default=str)
         if args.summary:
             with open(args.summary, "w") as fh:

@@ -63,7 +63,6 @@ import numpy as np
 
 from gan_deeplearning4j_tpu_torch.telemetry.registry import get_registry
 from gan_deeplearning4j_tpu_torch.telemetry.trace import TRACER
-from gan_deeplearning4j_tpu_torch.utils.serializer import _flatten
 
 MANIFEST_NAME = "MANIFEST.json"
 LEDGER_NAME = "ledger.json"
@@ -99,6 +98,9 @@ def tree_digest(tree) -> str:
     checkpoint *zip* (whose deflate stream embeds member timestamps), this
     is reproducible across runs and processes — the currency of the drill's
     bit-exact-resume invariant."""
+    # here, not at the top: the store itself loads without torch
+    from gan_deeplearning4j_tpu_torch.utils.serializer import _flatten
+
     flat: Dict[str, object] = {}
     if isinstance(tree, dict):
         _flatten("t", tree, flat)

@@ -16,13 +16,23 @@ The flags are the JAX server's (``gan_deeplearning4j_tpu/serving/
 __main__.py``) but ``--compilation-cache`` (a capture is not cached across
 processes), plus ``--device``. ``--replicas`` takes ``all`` or 1: more than
 one replica waits for ROADMAP.md queue 1, 'Serving, the rest'.
+
+Once the engine is warm the server logs one line, ``boot stamps {...}``:
+the wall-clock times (Unix seconds) at which the process started, entered
+``main`` (the interpreter and ``import torch`` behind it), held its CUDA
+context, had loaded the bundle and had captured every (kind, bucket), and
+the card's reserved bytes then. The fleet drill splits a worker's boot
+from them.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
+import os
 import sys
+import threading
 import time
 
 from gan_deeplearning4j_tpu_torch.serving.engine import DEFAULT_BUCKETS, ServingEngine
@@ -50,6 +60,40 @@ def _parse_replicas(text: str):
             f"--replicas {replicas}: more than one replica is not ported yet "
             f"(ROADMAP.md queue 1, 'Serving, the rest')")
     return replicas
+
+
+#: the log line a warm server writes its boot stamps on
+BOOT_STAMPS = "boot stamps "
+
+
+def _process_start_unix():
+    """When this process started, in Unix seconds (Linux ``/proc``, to the
+    clock tick), or None where that cannot be read."""
+    try:
+        with open("/proc/self/stat") as fh:
+            # the command name may hold spaces: fields count from its ")"
+            fields = fh.read().rsplit(")", 1)[1].split()
+        with open("/proc/stat") as fh:
+            btime = next(int(line.split()[1]) for line in fh if line.startswith("btime"))
+        return btime + int(fields[19]) / os.sysconf("SC_CLK_TCK")
+    except (OSError, ValueError, IndexError, StopIteration):
+        return None
+
+
+def _log_boot_stamps(log, engine, stamps: dict) -> None:
+    """Wait for the engine's warmup, then log the boot stamps line."""
+    import torch
+
+    try:
+        engine.wait_warm()
+    except RuntimeError:
+        pass  # the warmup's failure is /healthz's "error"; the stamps say so
+    stamps["warm"] = time.time()
+    stamps["warmed"] = bool(engine.warmed)
+    stamps["platform"] = engine.platform
+    stamps["reserved_bytes"] = (torch.cuda.memory_reserved(engine.device)
+                                if engine.device.type == "cuda" else 0)
+    log.info("%s%s", BOOT_STAMPS, json.dumps(stamps))
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -167,11 +211,20 @@ def _canary(args, canary_bundle, canary_classifier, p):
 
 
 def main(argv=None) -> int:
+    stamps = {"process_start": _process_start_unix(), "main": time.time()}
     p = _build_parser()
     args = p.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     log = logging.getLogger(__name__)
+    if args.device.startswith("cuda"):
+        import torch
+
+        # the context first and alone, so that the boot stamps time it; a
+        # process without the card raises here (no fallback to the CPU)
+        torch.empty(1, device=args.device)
+        torch.cuda.synchronize(args.device)
+    stamps["cuda_context"] = time.time()
     from gan_deeplearning4j_tpu_torch.telemetry.trace import TRACER, configure_from_env
 
     if args.telemetry:
@@ -220,6 +273,7 @@ def main(argv=None) -> int:
     else:
         p.error("need --bundle, --generator/--classifier, or --reload-store")
         return 2  # unreachable; argparse exits
+    stamps["bundle_loaded"] = time.time()
     service = InferenceService(
         engine,
         max_latency=args.max_latency,
@@ -229,6 +283,8 @@ def main(argv=None) -> int:
         pipeline_depth=args.pipeline_depth,
         artifacts_dir=args.debug_artifacts,
     )
+    threading.Thread(target=_log_boot_stamps, args=(log, engine, stamps),
+                     name="boot-stamps", daemon=True).start()
     controller = None
     if watcher is not None:
         from gan_deeplearning4j_tpu_torch.deploy import ReloadController

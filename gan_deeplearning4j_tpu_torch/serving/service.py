@@ -191,6 +191,14 @@ class InferenceService:
                          "error": f"bad 'ms': {params.get('ms')!r} (want 1..60000)"}
         block = params.get("block", ["0"])[0] not in ("0", "", "false")
         artifacts = self.artifacts_dir or _device.default_artifacts_dir()
+        # the profiler's first session must start on the main thread, or it
+        # records no device activity: this request thread has the main
+        # thread prime it (telemetry/device.py::request_prime)
+        if not _device.request_prime():
+            return 503, {"status": "error",
+                         "error": "the profiler could not be primed on the main "
+                                  "thread (make the server with make_server on "
+                                  "the main thread)"}
         try:
             if block:
                 path = _device.capture_device_trace(artifacts, duration_ms=ms)
@@ -407,6 +415,11 @@ def make_server(service: InferenceService, host: str = "127.0.0.1",
                 port: int = 8000) -> ThreadingHTTPServer:
     """Bind (but do not start) the HTTP front end; ``port=0`` picks a free
     port (tests). Call ``serve_forever()`` or drive it from a thread."""
+    from gan_deeplearning4j_tpu_torch.telemetry import device as _device
+
+    # so that POST /debug/trace, served on a request thread, can have the
+    # main thread prime the profiler (installs nothing off the main thread)
+    _device.install_prime_handler()
     handler = type("BoundHandler", (_Handler,), {"service": service})
     return ThreadingHTTPServer((host, port), handler)
 

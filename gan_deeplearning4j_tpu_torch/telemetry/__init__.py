@@ -12,10 +12,14 @@ plane reads:
 - :mod:`.slo` — multi-window burn rates; empty windows fail closed;
 - :mod:`.alerts` — the declarative alerting plane over those snapshots
   (threshold, absence, burn and anomaly rules; pending → firing →
-  resolved with hysteresis; exemplars; sinks).
+  resolved with hysteresis; exemplars; sinks);
+- :mod:`.trace_report` — folds Chrome traces (span dumps, the fleet's
+  merged trace, profiler captures) into occupancy and attribution tables
+  (``python -m gan_deeplearning4j_tpu_torch.telemetry.trace_report``).
 
-``registry``, ``trace``, ``aggregate``, ``slo`` and ``alerts`` are the JAX
-package's stdlib-only modules, copied so that the port imports nothing of
+``registry``, ``trace``, ``aggregate``, ``slo``, ``alerts`` and
+``trace_report`` (``scripts/trace_report.py`` there) are the JAX package's
+stdlib-only modules, copied so that the port imports nothing of
 that package. The namespace is lazy (PEP 562): importing it imports no
 ``torch``; only :mod:`.device` does, and only inside a capture.
 """

@@ -25,6 +25,19 @@ a CUDA-graph capture.
 One capture at a time per process: ``torch.profiler`` refuses nested
 sessions, so the hook refuses (``CaptureBusy``) instead of crashing the
 serving thread that raced a second request in.
+
+The profiler's first session in a process must start on the main thread
+(:func:`prime_profiler`), and both hooks run their captures on other
+threads. SIGUSR2's handler already runs on the main thread and primes
+there. The serving hook runs on a request thread, so it asks the main
+thread to prime (:func:`request_prime`): the main thread of a server sits
+in ``serve_forever``'s select loop (or, in a process that hosts the
+server on a thread, in whatever it is doing), and a signal is the one
+thing that makes Python run code there without the main thread's help.
+The handler is installed when the server is made (:func:`
+install_prime_handler`, cheap: priming itself costs seconds on the card
+and so happens on the first ``/debug/trace`` only, never at a worker's
+boot, most of a fleet relaunch's time).
 """
 
 from __future__ import annotations
@@ -48,6 +61,15 @@ _primed = False
 
 #: the Chrome trace a capture writes into its directory
 TRACE_NAME = "trace.json"
+
+#: the signal a request thread sends the main thread to prime the profiler
+#: there: its default action is to be ignored, so one that arrives before
+#: the handler is installed (or after it is replaced) harms nothing
+PRIME_SIGNAL = signal.SIGURG
+#: set by the main thread's handler once it has primed; a request thread
+#: waits on it
+_primed_event = threading.Event()
+_prime_handler_installed = False
 
 
 class CaptureBusy(RuntimeError):
@@ -133,6 +155,54 @@ def prime_profiler() -> None:
             prof.start()
             prof.stop()
     _primed = True
+    _primed_event.set()
+
+
+def _prime_handler(signo, frame) -> None:
+    """Runs on the main thread: prime unless a CUDA graph is being captured
+    there (a profiler session must not start inside a capture); the
+    request thread then asks again."""
+    from gan_deeplearning4j_tpu_torch.runtime.capture import capturing
+
+    if _primed or capturing():
+        return
+    try:
+        prime_profiler()
+    except Exception:
+        logger.exception("priming the profiler on the main thread failed")
+
+
+def install_prime_handler() -> bool:
+    """Install the main thread's priming handler for :data:`PRIME_SIGNAL`.
+    Only the main thread can install a signal handler: called from any
+    other thread it installs nothing and answers False."""
+    global _prime_handler_installed
+    if threading.current_thread() is not threading.main_thread():
+        return False
+    signal.signal(PRIME_SIGNAL, _prime_handler)
+    _prime_handler_installed = True
+    return True
+
+
+def request_prime(timeout_s: float = 120.0) -> bool:
+    """Make sure the profiler is primed before a capture starts on this
+    thread. On the main thread it primes here; on any other thread it
+    signals the main thread (:func:`install_prime_handler`) and waits,
+    asking again each second (the main thread may be inside a graph
+    capture). False when no handler is installed or the wait ran out."""
+    if _primed:
+        return True
+    if threading.current_thread() is threading.main_thread():
+        prime_profiler()
+        return True
+    if not _prime_handler_installed:
+        return False
+    main_ident = threading.main_thread().ident
+    deadline = time.monotonic() + timeout_s
+    while not _primed and time.monotonic() < deadline:
+        signal.pthread_kill(main_ident, PRIME_SIGNAL)
+        _primed_event.wait(min(1.0, max(0.0, deadline - time.monotonic())))
+    return _primed
 
 
 def install_signal_capture(artifacts_dir: str,

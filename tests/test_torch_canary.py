@@ -113,6 +113,23 @@ def test_fid_from_stats_matches_jax(shift):
     assert pt_fid.fid_score(real, fake) == pytest.approx(jax_fid.fid_score(real, fake), rel=1e-10)
 
 
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+def test_fid_of_a_non_finite_gaussian_is_nan(bad):
+    """A diverged generator's features give NaN, which no canary bar admits,
+    never LAPACK's "Eigenvalues did not converge" (what the JAX package's
+    ``eigh`` raises at some widths). Finite statistics keep the JAX
+    package's distance (``test_fid_from_stats_matches_jax``)."""
+    real, fake = _features(1), _features(2)
+    fake[3, 4] = bad
+    fid = pt_fid.fid_from_stats(pt_fid.FeatureStats.from_features(real),
+                                pt_fid.FeatureStats.from_features(fake))
+    assert np.isnan(fid)
+    wide_open = pt_canary.CanaryThresholds(fid_slack=float("inf"), accuracy_drop_max=float("inf"))
+    decision = pt_canary.compare_probes({"fid": fid, "accuracy": 0.1}, {"fid": 9.0, "accuracy": 0.9},
+                                        wide_open)
+    assert not decision.passed and decision.reason.startswith("fid nan")
+
+
 def test_feature_stats_refuse_one_sample():
     with pytest.raises(ValueError, match="2 samples"):
         pt_fid.FeatureStats.from_features(np.zeros((1, 3), np.float32))

@@ -7,7 +7,10 @@ JAX. No finding may be active, and none is suppressed to get there.
   hand-offs): the port's threads, signal handlers and locks;
 - JG016 (engine swap), JG022 (mux sharing), JG031 (literal ladders) and
   JG032 (the streaming iterator's double buffer): seams the port copied;
-- JG021 (respawn loops): the resilience drill's relaunch loop.
+- JG021 (respawn loops): the resilience drill's relaunch loop and the
+  fleet manager's supervise loop;
+- JG023 (alert metrics): the families ``default_fleet_rules`` names exist,
+  now that the port's fleet router creates them.
 """
 
 import os
@@ -17,8 +20,8 @@ from gan_deeplearning4j_tpu.analysis.rules import RULES_BY_CODE
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-PORT_RULES = ("JG003", "JG016", "JG017", "JG021", "JG022", "JG024", "JG025", "JG026", "JG027",
-              "JG028", "JG029", "JG031", "JG032")
+PORT_RULES = ("JG003", "JG016", "JG017", "JG021", "JG022", "JG023", "JG024", "JG025", "JG026",
+              "JG027", "JG028", "JG029", "JG031", "JG032")
 
 
 def test_port_has_no_active_finding():

@@ -387,10 +387,22 @@ def test_importing_the_port_loads_no_jax():
         "import gan_deeplearning4j_tpu_torch.runtime.prng\n"
         "import gan_deeplearning4j_tpu_torch.runtime.factory\n"
         "import gan_deeplearning4j_tpu_torch.eval.quality_run\n"
+        "import gan_deeplearning4j_tpu_torch.fleet\n"
+        "import gan_deeplearning4j_tpu_torch.fleet.health\n"
+        "import gan_deeplearning4j_tpu_torch.fleet.router\n"
+        "import gan_deeplearning4j_tpu_torch.fleet.autoscaler\n"
+        "import gan_deeplearning4j_tpu_torch.fleet.manager\n"
+        "import gan_deeplearning4j_tpu_torch.fleet.__main__\n"
+        "import gan_deeplearning4j_tpu_torch.fleet.drill\n"
+        "import gan_deeplearning4j_tpu_torch.fleet.drill_modes\n"
+        "import gan_deeplearning4j_tpu_torch.deploy.drill\n"
+        "import gan_deeplearning4j_tpu_torch.telemetry.trace_report\n"
         "import gan_deeplearning4j_tpu_torch as port\n"
         "port.factory\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'gan_deeplearning4j_tpu' or m.startswith('gan_deeplearning4j_tpu.')]\n"
+        "       or m == 'gan_deeplearning4j_tpu' or m.startswith('gan_deeplearning4j_tpu.')\n"
+        "       or m == 'scripts' or m.startswith('scripts.')\n"
+        "       or m in ('trace_report', 'reload_drill', 'fleet_drill', 'resilience_drill')]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -408,3 +420,55 @@ def test_port_sources_never_import_jax_or_the_jax_package():
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     offenders = [f for f in files if pattern.search(open(f).read())]
     assert not offenders
+
+
+def test_debug_trace_primes_the_profiler_on_the_main_thread_not_at_boot(tmp_path):
+    """``POST /debug/trace`` is served on a request thread, but the
+    profiler's first session in a process must start on the main thread
+    (on the card a first session anywhere else records no device activity).
+    The hook has the main thread prime it, by signal, before its first
+    session; a server that is only booted primes nothing (priming costs
+    seconds on the card, and a fleet relaunch is mostly boot)."""
+    code = f"""
+import json, os, threading, urllib.request
+from gan_deeplearning4j_tpu_torch.harness import ExperimentConfig, GanExperiment
+from gan_deeplearning4j_tpu_torch.resilience.drill import make_workload
+from gan_deeplearning4j_tpu_torch.serving import InferenceService, ServingEngine, make_server
+from gan_deeplearning4j_tpu_torch.telemetry import device
+
+calls = []
+prime, session = device.prime_profiler, device._capture_locked
+def traced_prime():
+    calls.append(("prime", threading.current_thread() is threading.main_thread()))
+    prime()
+def traced_session(out, ms):
+    calls.append(("session", device._primed, threading.current_thread() is threading.main_thread()))
+    return session(out, ms)
+device.prime_profiler, device._capture_locked = traced_prime, traced_session
+
+workload = make_workload({str(tmp_path)!r}, 3, use_accelerator=False)
+exp = GanExperiment(ExperimentConfig.from_json(workload["config"]))
+exp.publish_for_serving({str(tmp_path / "bundle")!r})
+engine = ServingEngine.from_bundle({str(tmp_path / "bundle")!r}, buckets=(1, 8), device="cpu")
+service = InferenceService(engine, warmup="sync", artifacts_dir={str(tmp_path / "traces")!r})
+server = make_server(service, port=0)
+booted = (list(calls), device._primed)
+threading.Thread(target=server.serve_forever, daemon=True).start()
+req = urllib.request.Request(
+    f"http://127.0.0.1:{{server.server_address[1]}}/debug/trace?ms=20&block=1",
+    data=b"{{}}", method="POST", headers={{"Content-Type": "application/json"}})
+with urllib.request.urlopen(req, timeout=60) as resp:
+    body = json.loads(resp.read())
+server.shutdown()
+print(json.dumps({{"booted": booted, "calls": calls, "body": body,
+                  "trace": os.path.exists(os.path.join(body["artifact"], device.TRACE_NAME))}}))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["booted"] == [[], False]  # a plain boot primes nothing
+    # primed once, on the main thread, before the session, which ran on
+    # the request thread
+    assert out["calls"] == [["prime", True], ["session", True, False]]
+    assert out["body"]["status"] == "ok" and out["trace"]
