@@ -105,7 +105,8 @@ p. windows bit for bit: for MNIST b200 (fp32, mixed bf16, bf16 storage),
 q. uncaptured (the device body launched op by op) against captured, back
    to back in one call, at the batches of (d), (h) and (l), fp32 (mixed
    bf16's captured timing is (l)'s): the first two iterations' seconds
-   (warmup and capture included), host and CUDA-event ms, rows/s, busy share, kernels and
+   (warmup and capture included), host and CUDA-event ms (the median of
+   10), rows/s, busy share, kernels and
    launch calls (kernel launches, graph launches, copies) per iteration,
    peak memory and each entry's private pool, and (captured) a window of
    16 over one resident batch.
@@ -246,7 +247,9 @@ w. (w1) the Inception-schema interpreter (``inception_feature_fn``) card
    ``--only eval`` runs (w) alone.
 
 Then the operations planes: (x) resilience (the supervisor, the worker
-CLI and its drill, the mesh commit; ``--only resilience``), and the fleet:
+CLI and its drill, the mesh commit; ``--only resilience``; the drills run
+their independent worker lifetimes in pairs, ``overlap=True``), and the
+fleet:
 
 y. every worker serves the full-width MNIST DCGAN bundle of (x)'s workload
    (``ExperimentConfig``'s defaults, synthetic rows) on the card: (y1) the
@@ -264,6 +267,34 @@ y. every worker serves the full-width MNIST DCGAN bundle of (x)'s workload
    to routable seconds; (y4) the alerts drill (smoke depth); (y5) the mux
    drill in this process, fp32 and a bf16 variant. ``--only fleet`` runs
    (y) alone.
+
+Then serving across replicas:
+
+z. the MNIST DCGAN bundle (ladder 1, 8, 32, 128) on every card the host
+   has, one replica each, or on a one-card host two replicas on
+   ``cuda:0`` (``devices=("cuda:0", "cuda:0")``; the line
+   ``replicas_placement`` says which): (z1) fp32, each (kind, bucket,
+   replica) captured once in warmup and none after; for every kind and n
+   in (1, 3, 8, 21, 130, 256, 300) and top × R (+ 44), staged ``run``
+   bit-equal to ``run_host`` and card vs CPU within 1e-4; a bulk slab's
+   parts reserving no replica and capturing nothing; 16 mixed dispatches
+   reaching every replica, R back-to-back flights on R lanes; a chunk made
+   to fail (in the bulk lane, then in a chunked flush) leaving no
+   reservation; 8 closed-loop HTTP clients for 3 s, every answer ok,
+   ``/healthz`` the replica count, the batcher's depth 2 × R; (z2) the int8
+   variant at the same replicas (the kernel's launch count zeroed before,
+   read after): every replica's replays bit-equal to the forward with
+   ``quant_dense_plain``, one prepared kernel handle per ``W_q`` tensor,
+   driven from 2 × R threads at once; (z3) timing, recorded: ``run`` ms at
+   buckets 1 and 128, one replica against R, rows/s of 4 closed-loop
+   threads at n = 8 and 128 (and ``sample``'s busy share), a bulk slab
+   against R top-bucket runs in sequence, and the read of a synthetic
+   60,000 × 785 MNIST CSV, the native parser against ``np.loadtxt``; (z4)
+   with two or more cards, NCCL ``pmean`` MNIST at 200 a rank and world
+   ``min(cards, 4)`` through ``parallel/launch.py``, the ranks
+   bit-identical and within (a)'s limits of one card at the global batch;
+   with one card a line ``{"phase": "cross_card", "ran": false, ...}``.
+   ``--only replicas`` runs (z) alone.
 
 Every number is printed beside the card's name and power limit. The
 ``kernels`` line lists ``quant_dense`` (the JAX package has no Pallas
@@ -673,10 +704,12 @@ def _phase_run_and_publish(make_train, make_test, directory: str, card: str) -> 
     return row
 
 
-def _measure_iterations(exp, batches, batch: int, top_n: int, peak=("fp32", FP32_FLOP_PER_S)) -> dict:
-    """Steady-state cost of ``exp.train_iteration`` over ``batches`` (30
-    ``(x, y)`` pairs): 5 warm iterations, the median of 20 by the host clock
-    (with a synchronize) and by CUDA events, peak memory, then a
+def _measure_iterations(exp, batches, batch: int, top_n: int, peak=("fp32", FP32_FLOP_PER_S),
+                        timed: int = 20) -> dict:
+    """Steady-state cost of ``exp.train_iteration`` over ``batches``
+    (``timed`` + 10 ``(x, y)`` pairs): 5 warm iterations, the median of
+    ``timed`` by the host clock (with a synchronize) and by CUDA events,
+    peak memory, then a
     ``torch.profiler`` window of 5 iterations tracing the card only
     (device-busy share, kernels per iteration, of which copy kernels (the
     dtype casts among them), the ``top_n`` kernels), and the bound of the
@@ -690,7 +723,7 @@ def _measure_iterations(exp, batches, batch: int, top_n: int, peak=("fp32", FP32
     resident_mib = torch.cuda.memory_allocated() / 2**20
     torch.cuda.reset_peak_memory_stats()
     host_ms, event_ms = [], []
-    for xb, yb in batches[5:25]:
+    for xb, yb in batches[5:5 + timed]:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
@@ -702,7 +735,7 @@ def _measure_iterations(exp, batches, batch: int, top_n: int, peak=("fp32", FP32
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for xb, yb in batches[25:30]:
+        for xb, yb in batches[5 + timed:10 + timed]:
             exp.train_iteration(xb, yb)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -720,7 +753,7 @@ def _measure_iterations(exp, batches, batch: int, top_n: int, peak=("fp32", FP32
     flops = exp.flops_per_iteration(batch)
     median_host, median_event = statistics.median(host_ms), statistics.median(event_ms)
     bound_ms = flops / peak[1] * 1e3
-    return {"batch": batch, "iterations_timed": 20,
+    return {"batch": batch, "iterations_timed": timed,
             "iteration_ms_host_median": median_host,
             "iteration_ms_event_median": median_event,
             "rows_per_s": batch / median_host * 1e3,
@@ -1360,6 +1393,8 @@ def _phase_windows(x, y, directory: str, card: str) -> list:
 #: (q)'s dtypes: fp32 only since (v) joined the run (bf16's captured
 #: timing is (l)'s; the uncaptured bf16 pass cost ~75 s of the 157)
 CAPTURE_TIMING_DTYPES = ("fp32",)
+#: (q) iterations timed a mode (the median; 20 until the depth cut before (z))
+Q_TIMED = 10
 CAPTURE_TIMING_CASES = (("mnist", 200), ("tabular", 256), ("tabular", 4096), ("cifar10", 64),
                         ("celeba64", 64), ("wgan_gp", 320))
 #: host-side calls that put work on the card, as the profiler names them
@@ -1472,11 +1507,12 @@ def _phase_capture_timing(x, y, card: str) -> list:
             for mode in ("uncaptured", "captured"):
                 exp = _experiment_for(name, batch, **dtypes)
                 exp.graphs.captured = mode == "captured"
+                count = Q_TIMED + 17  # 2 first, Q_TIMED + 10 measured, 5 counted
                 if name == "mnist":
-                    batches = _mnist_batches(x, y, batch, 35)
+                    batches = _mnist_batches(x, y, batch, count)
                 else:
                     distinct = _family_batches(exp, 4, batch)
-                    batches = [distinct[i % 4] for i in range(35)]
+                    batches = [distinct[i % 4] for i in range(count)]
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 exp.train_iteration(*batches[0])
@@ -1484,12 +1520,13 @@ def _phase_capture_timing(x, y, card: str) -> list:
                 torch.cuda.synchronize()
                 first_two_s = time.perf_counter() - t0
                 peak = ("bf16", BF16_FLOP_PER_S) if dtype == "bf16" else ("fp32", FP32_FLOP_PER_S)
-                measured = _measure_iterations(exp, batches[2:32], batch, top_n=3, peak=peak)
+                measured = _measure_iterations(exp, batches[2:count - 5], batch, top_n=3, peak=peak,
+                                               timed=Q_TIMED)
                 runs0 = exp.graphs.runs
-                calls = _launch_calls(exp, batches[30:35])
+                calls = _launch_calls(exp, batches[count - 5:])
                 graph_launches = (exp.graphs.runs - runs0) / 5 if exp.graphs.captured else 0.0
                 if exp.graphs.captured:
-                    measured["host_ms_split"] = _host_split(exp, batches[30:35])
+                    measured["host_ms_split"] = _host_split(exp, batches[count - 5:])
                 pair[mode] = {
                     "first_two_iterations_s": first_two_s, **measured,
                     "launch_calls_per_iteration": calls,
@@ -3738,7 +3775,8 @@ def _phase_resilience(x, y, directory: str, card: str) -> dict:
     workload = _drill_workload(x, y, workdir)
     trace_dir = os.path.join(workdir, "traces")
     single = drill.run_single_host_drill(workload, workdir, X2_STEPS, X2_PUBLISH_EVERY, SEED,
-                                         timeout_s=DRILL_WORKER_TIMEOUT_S, trace_dir=trace_dir)
+                                         timeout_s=DRILL_WORKER_TIMEOUT_S, trace_dir=trace_dir,
+                                         overlap=True)
     results = single.get("results", {})
     out["drill"] = {"ok": single["ok"], "invariants": single["invariants"],
                     "config": single.get("config"), "oracle": results.get("oracle"),
@@ -3756,7 +3794,7 @@ def _phase_resilience(x, y, directory: str, card: str) -> dict:
     workdir = os.path.join(directory, "x3")
     mesh = drill.run_multihost_drill(_drill_workload(x, y, workdir), workdir, 2, X3_STEPS,
                                      X3_PUBLISH_EVERY, SEED, mesh_timeout=X3_MESH_TIMEOUT_S,
-                                     timeout_s=DRILL_WORKER_TIMEOUT_S)
+                                     timeout_s=DRILL_WORKER_TIMEOUT_S, overlap=True)
     results = mesh.get("results", {})
     out["mesh_drill"] = {"ok": mesh["ok"], "invariants": mesh["invariants"],
                          "config": mesh.get("config"), "oracle": results.get("oracle"),
@@ -3915,8 +3953,453 @@ def _phase_fleet(x, y, directory: str, card: str) -> dict:
     return out
 
 
+# -- (z) serving across replicas -------------------------------------------------------
+
+#: (z1) request sizes: at two replicas 256 is one bulk slab (128 × 2) and 300
+#: a slab and a tail; top × R and top × R + 44 join them at R replicas
+Z_SIZES = (1, 3, 8, 21, 130, 256, 300)
+#: (z1) closed-loop HTTP clients and their seconds
+Z_HTTP_CLIENTS, Z_HTTP_SECONDS = 8, 3.0
+#: (z3) ``run`` ms: the median of this many runs a turn, in turns 1, R, R, 1
+Z_TIMED = 10
+#: (z3) closed-loop ``dispatch`` / ``finalize`` threads, and seconds a turn
+Z_THREADS, Z_LOOP_SECONDS = 4, 0.5
+#: (z3) the synthetic MNIST CSV: the reference's ``mnist_train.csv`` shape
+Z_CSV_ROWS, Z_CSV_COLS = 60_000, 785
+
+
+def _replica_placement() -> dict:
+    """``ServingEngine`` arguments for (z): every card the host has, one
+    replica each; on a one-card host two replicas on ``cuda:0`` (the
+    counterpart of the JAX tests' forced host devices)."""
+    if torch.cuda.device_count() >= 2:
+        return {"device": "cuda", "replicas": "all"}
+    return {"devices": ("cuda:0", "cuda:0"), "replicas": 2}
+
+
+def _check_replica_captures(engine, label: str) -> None:
+    """Each (kind, bucket, replica) captured once, none after warmup."""
+    r, per = engine.replica_count, len(engine.buckets) * len(engine.kinds)
+    want = {k: len(engine.buckets) * r for k in engine.kinds}
+    if (engine.compile_counts != want or len(engine.graph_stats()) != per * r
+            or engine.stats()["compiled_per_replica"] != [per] * r
+            or engine.serve_compile_counts != {k: 0 for k in engine.kinds}):
+        raise AssertionError(f"(z) {label}: captures {engine.compile_counts} (want {want}), per replica "
+                             f"{engine.stats()['compiled_per_replica']}, after warmup "
+                             f"{engine.serve_compile_counts}")
+
+
+def _fail_a_chunk(engine, n: int, fail_at: int, rng) -> dict:
+    """Dispatch ``n`` sample rows with the ``fail_at``-th launch made to
+    raise: every earlier part's buffer and reservation must come back."""
+    calls = [0]
+    real = engine._launch
+
+    def flaky(*args):
+        calls[0] += 1
+        if calls[0] >= fail_at:
+            raise RuntimeError("(z) injected chunk failure")
+        return real(*args)
+
+    engine._launch = flaky
+    try:
+        engine.dispatch("sample", [_rows("sample", n, rng)])
+    except RuntimeError as exc:
+        if "injected" not in str(exc):
+            raise
+    else:
+        raise AssertionError(f"(z) the injected failure at launch {fail_at} of n={n} did not raise")
+    finally:
+        del engine._launch
+    stats = engine.stats()
+    if stats["replica_in_flight"] != [0] * engine.replica_count or engine.in_flight:
+        raise AssertionError(f"(z) a failed chunk left reservations: {stats['replica_in_flight']}")
+    return {"n": n, "failed_launch": fail_at, "replica_in_flight": stats["replica_in_flight"]}
+
+
+def _replica_http(engine) -> dict:
+    """``Z_HTTP_CLIENTS`` closed-loop clients over HTTP for ``Z_HTTP_SECONDS``
+    against the engine: every answer ok with its shape, ``/healthz`` the
+    replica count, the batcher's depth two per replica, every replica
+    routed."""
+    from gan_deeplearning4j_tpu_torch.serving import InferenceService, make_server
+
+    service = InferenceService(engine, warmup="sync")
+    server = make_server(service, port=0)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    widths = {"sample": 784, "classify": 10, "features": 1024}
+    r = engine.replica_count
+    try:
+        with urllib.request.urlopen(f"{base}/healthz", timeout=30) as resp:
+            health = json.loads(resp.read())
+        if (health["status"] != "ok" or health["platform"] != "gpu" or health["replicas"] != r
+                or service.batcher.pipeline_depth != 2 * r):
+            raise AssertionError(f"(z) /healthz {health}, pipeline depth {service.batcher.pipeline_depth}")
+        before = engine.stats()["replica_dispatches"]
+        results, errors, stop = [], [], threading.Event()
+
+        def client(i: int) -> None:
+            rng = np.random.default_rng(SEED + i)
+            j = 0
+            try:
+                while not stop.is_set():
+                    kind = ("sample", "classify", "features")[(i + j) % 3]
+                    n = (1, 3, 8, 21)[(i + j) % 4]
+                    results.append((kind, n) + _post(base, kind, _rows(kind, n, rng)))
+                    j += 1
+            except Exception as exc:  # reported below; the phase fails
+                errors.append(repr(exc))
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(Z_HTTP_CLIENTS)]
+        for t in threads:
+            t.start()
+        time.sleep(Z_HTTP_SECONDS)
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        bad = [(kind, n, status, body.get("status")) for kind, n, status, body, _ in results
+               if status != 200 or body.get("status") != "ok"
+               or np.asarray(body.get("data")).shape != (n, widths[kind])]
+        routed = [a - b for a, b in zip(engine.stats()["replica_dispatches"], before)]
+        if errors or bad or not results or any(t.is_alive() for t in threads) or min(routed) <= 0:
+            raise AssertionError(f"(z) HTTP: errors {errors[:3]}, bad {bad[:3]}, routed {routed}")
+        return {"requests": len(results), "non_ok": 0, "routed_per_replica": routed,
+                "pipeline_depth": service.batcher.pipeline_depth, "healthz_replicas": health["replicas"],
+                "p50_ms": 1e3 * statistics.median(res[4] for res in results)}
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=30)
+
+
+def _replicas_fp32(directory: str, placement: dict) -> tuple:
+    """(z1): the fp32 bundle at every replica; returns the warm engine."""
+    from gan_deeplearning4j_tpu_torch.serving import ServingEngine
+
+    engine = ServingEngine.from_bundle(directory, export_gauge=False, **placement)
+    r, top = engine.replica_count, engine.buckets[-1]
+    t0 = time.perf_counter()
+    engine.warmup()
+    warm_s = time.perf_counter() - t0
+    _check_replica_captures(engine, "fp32 warmup")
+    counts = engine.compile_counts
+    cpu = ServingEngine.from_bundle(directory, device="cpu", export_gauge=False)
+    rng = np.random.default_rng(SEED)
+    sizes = sorted(set(Z_SIZES) | {top * r, top * r + 44})
+    errs = {}
+    for kind in engine.kinds:
+        for n in sizes:
+            rows = _rows(kind, n, rng)
+            staged = engine.run(kind, rows)
+            if not np.array_equal(staged, engine.run_host(kind, rows)) or not np.all(np.isfinite(staged)):
+                raise AssertionError(f"(z1) {kind} n={n}: staged run differs from run_host, or non-finite")
+            ref = cpu.run_host(kind, rows)
+            err = float(np.max(np.abs(staged - ref)))
+            if staged.shape != ref.shape or err > CPU_TOL:
+                raise AssertionError(f"(z1) {kind} n={n}: card vs CPU {err} > {CPU_TOL}")
+            errs[kind] = max(errs.get(kind, 0.0), err)
+    slab = engine.dispatch("sample", [_rows("sample", top * r, rng)])
+    bulk_parts = [part[4] for part in slab.parts]
+    engine.finalize(slab)
+    if bulk_parts != [None] * r or engine.compile_counts != counts:
+        raise AssertionError(f"(z1) the bulk slab's parts reserved {bulk_parts}, captures "
+                             f"{engine.compile_counts} (were {counts})")
+    before = engine.stats()["replica_dispatches"]
+    for i in range(16):
+        kind = engine.kinds[i % len(engine.kinds)]
+        engine.finalize(engine.dispatch(kind, [_rows(kind, (1, 8, 21, 128)[i % 4], rng)]))
+    routed = [a - b for a, b in zip(engine.stats()["replica_dispatches"], before)]
+    flights = [engine.dispatch("classify", [_rows("classify", 1, rng)]) for _ in range(r)]
+    lanes = sorted(f.lane for f in flights)
+    for f in flights:
+        engine.finalize(f)
+    if min(routed) <= 0 or lanes != list(range(r)):
+        raise AssertionError(f"(z1) routed {routed} over 16 dispatches, back-to-back lanes {lanes}")
+    failures = [_fail_a_chunk(engine, top * r + 44, r, rng), _fail_a_chunk(engine, top + 72, 2, rng)]
+    rows = _rows("sample", top * r + 44, rng)
+    if not np.array_equal(engine.run("sample", rows), engine.run_host("sample", rows)):
+        raise AssertionError("(z1) after the injected failures the staged run differs from run_host")
+    http = _replica_http(engine)
+    _check_replica_captures(engine, "fp32 after serving")
+    return engine, {"replicas": r, "devices": [str(d) for d in engine.devices], "warmup_s": warm_s,
+                    "compile_counts": engine.compile_counts, "sizes": sizes,
+                    "card_vs_cpu_max_abs_err": errs, "tolerance": CPU_TOL, "staged_equals_host": True,
+                    "bulk_parts_reserved": bulk_parts, "routed_of_16": routed, "back_to_back_lanes": lanes,
+                    "failed_chunks": failures, "http": http,
+                    "graph_pool_bytes": engine.stats()["graph_pool_bytes"]}
+
+
+def _replicas_int8(int8_dir: str, placement: dict) -> dict:
+    """(z2): the int8 variant at the same replicas, the kernel's launch count
+    zeroed before and read after: replays of every replica bit-equal to the
+    forward with ``quant_dense_plain``; the prepared kernel handle (shared
+    by replicas on one card) driven from every replica's stream at once."""
+    from gan_deeplearning4j_tpu_torch.ops import linear
+    from gan_deeplearning4j_tpu_torch.serving import ServingEngine
+
+    linear.KERNEL_LAUNCHES["quant_dense"] = 0
+    engine = ServingEngine.from_bundle(int8_dir, export_gauge=False, **placement)
+    engine.warmup()
+    _check_replica_captures(engine, "int8 warmup")
+    r = engine.replica_count
+    rng = np.random.default_rng(SEED + 1)
+    worst, checked = 0.0, 0
+    for kind in ("classify", "features"):
+        for bucket in engine.buckets:
+            rows = [_rows(kind, bucket, rng) for _ in range(r)]
+            flights = [engine.dispatch(kind, [x]) for x in rows]
+            lanes = sorted(f.lane for f in flights)
+            outs = [engine.finalize(f) for f in flights]
+            with _plain_quant_dense():
+                plains = [engine.run_host(kind, x) for x in rows]
+            if lanes != list(range(r)):
+                raise AssertionError(f"(z2) {kind}/{bucket}: back-to-back lanes {lanes}")
+            worst = max([worst] + [float(np.max(np.abs(o - p))) for o, p in zip(outs, plains)])
+            checked += r
+    # every replica's graphs launch the kernel from its own stream at once
+    fixed = {kind: _rows(kind, engine.buckets[-1], rng) for kind in ("classify", "features")}
+    with _plain_quant_dense():
+        want = {kind: engine.run_host(kind, x) for kind, x in fixed.items()}
+    errors, mismatches = [], []
+
+    def loop(i: int) -> None:
+        try:
+            for j in range(20):
+                kind = ("classify", "features")[(i + j) % 2]
+                out = engine.finalize(engine.dispatch(kind, [fixed[kind]]))
+                if not np.array_equal(out, want[kind]):
+                    mismatches.append((i, j, kind))
+        except Exception as exc:  # reported below; the phase fails
+            errors.append(repr(exc))
+
+    threads = [threading.Thread(target=loop, args=(i,)) for i in range(2 * r)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    w_q = [rep.params["classifier"][layer]["W_q"] for rep in engine._replicas
+           for layer, leaves in rep.params["classifier"].items() if "W_q" in leaves]
+    layers = len({id(w) for w in w_q})  # one tensor a layer on one card, one a card otherwise
+    handles = len({id(linear._PREPARED.get(id(w))) for w in w_q})
+    launches = linear.KERNEL_LAUNCHES["quant_dense"] + engine.kernel_launches().get("quant_dense", 0)
+    out = {"replicas": r, "replay_vs_plain_quant_dense_max_abs_err": worst, "flights_checked": checked,
+           "concurrent_flights": 2 * r * 20, "concurrent_mismatches": mismatches[:5],
+           "w_q_tensors": layers, "prepared_handles": handles, "quantized_layers_over_replicas": len(w_q),
+           "serve_compile_counts": engine.serve_compile_counts, "kernel_launches": launches}
+    engine.close()
+    if worst or errors or mismatches or launches <= 0 or handles != layers:
+        raise AssertionError(f"(z2) int8 replicas: {out}, errors {errors[:3]}")
+    return out
+
+
+def _closed_loop_rows_per_s(engine, kind: str, n: int) -> float:
+    """Rows a second that ``Z_THREADS`` threads get through closed-loop
+    ``dispatch`` / ``finalize`` of ``n`` rows for ``Z_LOOP_SECONDS``."""
+    rows = _rows(kind, n, np.random.default_rng(SEED))
+    done, stop = [0] * Z_THREADS, threading.Event()
+
+    def loop(i: int) -> None:
+        while not stop.is_set():
+            engine.finalize(engine.dispatch(kind, [rows]))
+            done[i] += n
+
+    threads = [threading.Thread(target=loop, args=(i,)) for i in range(Z_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    time.sleep(Z_LOOP_SECONDS)
+    stop.set()
+    for t in threads:
+        t.join(timeout=60)
+    return sum(done) / (time.perf_counter() - t0)
+
+
+def _closed_loop_busy(engine, kind: str, n: int) -> float:
+    """The card's kernel-span share of the wall under the closed loop, from
+    a ``torch.profiler`` window (the card only) around one loop."""
+    from gan_deeplearning4j_tpu_torch.serving.profile import _union_us
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _closed_loop_rows_per_s(engine, kind, n)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = [(ev.time_range.start, ev.time_range.end) for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA]
+    return _union_us(spans) / wall_us
+
+
+def _csv_read_timing(directory: str) -> dict:
+    """The read of a synthetic ``mnist_train.csv`` (60,000 × 785 integers:
+    a label and 784 pixels), the native parser against ``np.loadtxt``; both
+    must give the same array."""
+    from gan_deeplearning4j_tpu_torch.native import csv_loader
+
+    rng = np.random.default_rng(SEED)
+    data = rng.integers(0, 256, (Z_CSV_ROWS, Z_CSV_COLS), dtype=np.uint8).astype(np.float32)
+    data[:, 0] %= 10  # the label column
+    path = os.path.join(directory, "mnist_train_synthetic.csv")
+    if not csv_loader.available():
+        raise AssertionError("(z3) the native CSV library did not build")
+    t0 = time.perf_counter()
+    csv_loader.write_csv(path, data, precision=0)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native = csv_loader.load_csv(path)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = np.loadtxt(path, delimiter=",", dtype=np.float32, ndmin=2)
+    numpy_s = time.perf_counter() - t0
+    if not (np.array_equal(native, plain) and np.array_equal(native, data)):
+        raise AssertionError("(z3) the native CSV read differs from np.loadtxt")
+    out = {"rows": Z_CSV_ROWS, "cols": Z_CSV_COLS, "bytes": os.path.getsize(path),
+           "native_write_s": write_s, "native_read_s": native_s, "numpy_read_s": numpy_s,
+           "speedup": numpy_s / native_s}
+    os.remove(path)
+    return out
+
+
+def _replicas_timing(directory: str, engine, card: str) -> dict:
+    """(z3) timing, recorded and not judged, in turns in one call (fp32):
+    ``run`` ms at buckets 1 and 128, one replica against R; rows/s of
+    ``Z_THREADS`` closed-loop threads at n = 8 and 128, and for ``sample``
+    the busy share there (a profiler session costs seconds: (z) is held to
+    a minute); a bulk slab's ms against R top-bucket runs in sequence; the
+    CSV read."""
+    from gan_deeplearning4j_tpu_torch.serving import ServingEngine
+
+    one = ServingEngine.from_bundle(directory, device="cuda", export_gauge=False)
+    one.warmup()
+    engines = {"1": one, "R": engine}
+    r, top = engine.replica_count, engine.buckets[-1]
+    rng = np.random.default_rng(SEED + 2)
+    out = {"replicas": r, "run_ms": [], "closed_loop": [], "bulk": []}
+    for kind in ("sample", "classify"):
+        for bucket in (1, top):
+            rows = _rows(kind, bucket, rng)
+            ms = {"1": [], "R": []}
+            for name in ("1", "R", "R", "1"):
+                _host_ms(engines[name], kind, rows, 3)
+                ms[name] += _host_ms(engines[name], kind, rows, Z_TIMED)
+            out["run_ms"].append({"kind": kind, "bucket": bucket, "ms_one_replica": statistics.median(ms["1"]),
+                                  "ms_replicas": statistics.median(ms["R"])})
+        for n in (8, top):
+            rate = {"1": [], "R": []}
+            for name in ("1", "R", "R", "1"):
+                rate[name].append(_closed_loop_rows_per_s(engines[name], kind, n))
+            row = {"kind": kind, "n": n, "threads": Z_THREADS,
+                   "rows_per_s_one_replica": statistics.mean(rate["1"]),
+                   "rows_per_s_replicas": statistics.mean(rate["R"])}
+            if kind == "sample":
+                row.update(busy_one_replica=_closed_loop_busy(one, kind, n),
+                           busy_replicas=_closed_loop_busy(engine, kind, n))
+            out["closed_loop"].append(row)
+        slab = _rows(kind, top * r, rng)
+        chunks = [slab[i * top:(i + 1) * top] for i in range(r)]
+        bulk, seq = [], []
+        for turn in range(2 * Z_TIMED):
+            t0 = time.perf_counter()
+            if turn % 2:
+                engine.run(kind, slab)
+                bulk.append((time.perf_counter() - t0) * 1e3)
+            else:
+                for chunk in chunks:
+                    engine.run(kind, chunk)
+                seq.append((time.perf_counter() - t0) * 1e3)
+        out["bulk"].append({"kind": kind, "rows": top * r, "bulk_ms": statistics.median(bulk),
+                            "top_bucket_runs_in_sequence_ms": statistics.median(seq)})
+    one.close()
+    out["csv_read"] = _csv_read_timing(directory)
+    for key in ("run_ms", "closed_loop", "bulk"):
+        for row in out[key]:
+            print(json.dumps({"phase": f"replicas_timing_{key}", "replicas": r, **row, "card": card}))
+    print(json.dumps({"phase": "csv_read", **out["csv_read"], "card": card}))
+    return out
+
+
+def _cross_card(x, y, card: str) -> dict:
+    """(z4) across cards, run only with two or more: NCCL ``pmean`` MNIST at
+    200 a rank and world ``min(cards, 4)`` through ``parallel/launch.py``,
+    the ranks bit-identical and within (a)'s limits of one card at the
+    global batch (the classifier's frozen-layer caches apart, as in (v2)).
+    With one card it reports that it did not run."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        row = {"phase": "cross_card", "ran": False, "cards": cards}
+        print(json.dumps({**row, "card": card}))
+        return row
+    from gan_deeplearning4j_tpu_torch.parallel import drill
+    from gan_deeplearning4j_tpu_torch.parallel.launch import spawn
+
+    world = min(cards, 4)
+    fx, fy = _parallel_batches("mnist", x, y, world * WORKER_ROWS, 1)
+    scen = {"pmean": ("experiment_run", dict(
+        config={"save_models": False, "batch_size_train": world * WORKER_ROWS, "distributed": "pmean"},
+        states=None, batches=fx[:1], labels=fy[:1]))}
+    ranks = spawn(drill.run_all, world, (scen,), backend="nccl", use_accelerator=True, timeout=600, threads=2)
+    single = _parallel_experiment("mnist", world * WORKER_ROWS)
+    single_losses = _loss_row(single.train_iteration(fx[0], fy[0]))
+    flat = _host_flat(ranks[0]["pmean"]["states"])
+    # the updater state of every frozen (learning rate 0) layer moves no
+    # param: the classifier's, as in (v2), and the gan graph's dis layers',
+    # whose squared-gradient cache a rank count's summation order moves
+    # past 5e-3 (a CPU rehearsal at world 2: 7.1e-3 on one conv's cache)
+    frozen = [f"gan/opt_state/{layer}/" for layer, u in single.gan.layer_updaters().items()
+              if u.learning_rate == 0]
+    apart = _frozen_updater_keys(single, flat) + [k for k in flat if k.startswith(tuple(frozen))]
+    vs_one = {"loss_max_rel": _loss_rel(_loss_row(ranks[0]["pmean"]["losses"][0]), single_losses),
+              **_state_limits(flat, _flat(single), (), apart)}
+    row = {"phase": "cross_card", "ran": True, "cards": cards, "world": world, "backend": "nccl",
+           "ranks_differing": _ranks_differing(ranks, "pmean"), "nccl_world_vs_one_card": vs_one,
+           "card": card}
+    print(json.dumps(row, default=float))
+    if row["ranks_differing"] or vs_one["loss_max_rel"] > ITER_LOSS_RTOL or vs_one["max_leaf_rel"] > ITER_LEAF_REL:
+        raise AssertionError(f"(z4) NCCL across {world} cards: {row}")
+    return row
+
+
+def _phase_replicas(x, y, directory: str, int8_dir: str, card: str) -> dict:
+    """(z) Serving across replicas on the card, at the MNIST DCGAN bundle's
+    full width and ladder (1, 8, 32, 128): every card the host has, or two
+    replicas on ``cuda:0``. (z1) fp32: captures per (kind, bucket,
+    replica), staged = ``run_host`` and card vs CPU at every n through the
+    bulk lane, routing, lanes, release on failure, HTTP; (z2) int8 replays
+    against ``quant_dense_plain``; (z3) timing, recorded; (z4) across cards,
+    or a line saying it did not run."""
+    placement = _replica_placement()
+    cards = torch.cuda.device_count()
+    print(json.dumps({"phase": "replicas_placement", "cards": cards,
+                      "placement": "every card" if cards >= 2 else "two replicas on cuda:0",
+                      **{k: list(v) if isinstance(v, tuple) else v for k, v in placement.items()},
+                      "card": card}))
+    seconds = {}
+    t0 = time.perf_counter()
+    engine, fp32 = _replicas_fp32(directory, placement)
+    seconds["z1"] = time.perf_counter() - t0
+    print(json.dumps({"phase": "replicas_fp32", **fp32, "card": card}))
+    t0 = time.perf_counter()
+    int8 = _replicas_int8(int8_dir, placement)
+    seconds["z2"] = time.perf_counter() - t0
+    print(json.dumps({"phase": "replicas_int8", **int8, "card": card}))
+    t0 = time.perf_counter()
+    timing = _replicas_timing(directory, engine, card)
+    seconds["z3"] = time.perf_counter() - t0
+    engine.close()
+    t0 = time.perf_counter()
+    cross = _cross_card(x, y, card)
+    seconds["z4"] = time.perf_counter() - t0
+    print(json.dumps({"phase": "replicas_seconds", **seconds, "card": card}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"fp32": fp32, "int8": int8, "timing": timing, "cross_card": cross, "seconds": seconds}
+
+
 #: the phases ``--only`` can run by themselves: (x, y, directory, card); "reload"
-#: builds (t)'s bundle first
+#: builds (t)'s bundle first, "replicas" the bundle and its int8 variant
 _TRAINING_ONLY = {"windows": lambda *a: _phase_windows(*a),
                   "capture_timing": lambda x, y, d, card: _phase_capture_timing(x, y, card),
                   "zoo": lambda *a: _phase_zoo(*a),
@@ -3924,7 +4407,19 @@ _TRAINING_ONLY = {"windows": lambda *a: _phase_windows(*a),
                   "eval": lambda *a: _phase_eval(*a),
                   "resilience": lambda *a: _phase_resilience(*a),
                   "reload": lambda x, y, d, card: (_build_bundle(d), _phase_reload(d, d, card)),
-                  "fleet": lambda *a: _phase_fleet(*a)}
+                  "fleet": lambda *a: _phase_fleet(*a),
+                  "replicas": lambda x, y, d, card: _phase_replicas(x, y, d, _int8_variant(d), card)}
+
+
+def _int8_variant(directory: str) -> str:
+    """The serving bundle of ``directory`` (written now) and its int8
+    variant, calibrated on the card: the variant's directory."""
+    from gan_deeplearning4j_tpu_torch.quant import build_int8_variant
+
+    _build_bundle(directory)
+    int8_dir = os.path.join(directory, "int8_variant")
+    build_int8_variant(directory, int8_dir)
+    return int8_dir
 
 
 def _run_only(names, card: str) -> int:
@@ -4033,7 +4528,8 @@ def main(argv=None) -> int:
                          ("parallel", lambda: _phase_parallel(x, y, directory, card)),
                          ("eval", lambda: _phase_eval(x, y, directory, card)),
                          ("resilience", lambda: _phase_resilience(x, y, directory, card)),
-                         ("fleet", lambda: _phase_fleet(x, y, directory, card))):
+                         ("fleet", lambda: _phase_fleet(x, y, directory, card)),
+                         ("replicas", lambda: _phase_replicas(x, y, directory, int8_dir, card))):
             t0 = time.perf_counter()
             try:
                 families[key] = run()
@@ -4043,7 +4539,7 @@ def main(argv=None) -> int:
             seconds[key] = time.perf_counter() - t0
     if failed:
         print(f"chip_smoke: family / bf16 / window / int8 / serving / zoo / parallel / eval / "
-              f"resilience / fleet phases "
+              f"resilience / fleet / replicas phases "
               f"failed: {failed}",
               file=sys.stderr)
         return 1
@@ -4076,7 +4572,8 @@ def main(argv=None) -> int:
                              "mux (s)": families["mux"]["kernel_launches"],
                              "zoo (u)": families["zoo"]["drill"]["kernel_launches"],
                              "eval (w)": families["eval"]["quality_run"]["quant_dense_launches"],
-                             "fleet (y)": families["fleet"]["kernel_launches"]},
+                             "fleet (y)": families["fleet"]["kernel_launches"],
+                             "replicas (z)": families["replicas"]["int8"]["kernel_launches"]},
         "max_abs_err": quant["max_abs_err"], "ms": top["kernel_ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"], "library_ms": top["library_ms"],
         "shape": "x (128, 1152) fp32 · W_q (1152, 1024) int8 (dis_dense_layer_6)",

@@ -4,16 +4,37 @@
 ``FileSplit(ClassPathResource("mnist_train.csv"))`` parses the whole file
 to one float32 matrix up front; the iterator layer batches and labelizes
 it. ``InMemoryRecordReader`` reads a matrix already in memory. Parsing and
-writing go through numpy (the JAX package's optional C++ parser is not
-copied).
+writing prefer the port's native C++ library (``native/csv_loader.py``,
+built with g++ at first use), as the JAX package's records prefer its own;
+where it cannot be built they use numpy and log so once. The fallback is
+host I/O of the same values.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
+
+_log = logging.getLogger(__name__)
+_fallback_logged = False
+
+
+def _native_csv():
+    """The native CSV module when its library is available, else None (and
+    the numpy fallback is logged, once a process)."""
+    global _fallback_logged
+    from gan_deeplearning4j_tpu_torch.native import csv_loader
+
+    if csv_loader.available():
+        return csv_loader
+    if not _fallback_logged:
+        _fallback_logged = True
+        _log.warning("the native CSV library is unavailable (no g++, or its build failed): "
+                     "CSV files are read and written with numpy")
+    return None
 
 
 class ClassPathResource:
@@ -88,8 +109,20 @@ class RecordReader:
             yield self.next_record()
 
 
+def _parse_csv(path: str, skip_lines: int, delimiter: str) -> np.ndarray:
+    """Parse a numeric CSV to float32, preferring the native parser."""
+    native = _native_csv()
+    if native is not None:
+        return native.load_csv(path, skip_lines=skip_lines, delimiter=delimiter)
+    return np.loadtxt(path, delimiter=delimiter, skiprows=skip_lines, dtype=np.float32, ndmin=2)
+
+
 def write_csv(path: str, array: np.ndarray, precision: int = 6, delimiter: str = ",") -> str:
-    """Write a float matrix as fixed-precision CSV."""
+    """Write a float matrix as fixed-precision CSV, preferring the native
+    writer."""
+    native = _native_csv()
+    if native is not None:
+        return native.write_csv(path, array, delimiter=delimiter, precision=precision)
     np.savetxt(path, np.asarray(array), delimiter=delimiter, fmt=f"%.{precision}f")
     return path
 
@@ -103,10 +136,7 @@ class CSVRecordReader(RecordReader):
         self.delimiter = delimiter
 
     def initialize(self, split: FileSplit) -> None:
-        self._data = np.loadtxt(
-            split.path, delimiter=self.delimiter, skiprows=self.skip_lines,
-            dtype=np.float32, ndmin=2,
-        )
+        self._data = _parse_csv(split.path, self.skip_lines, self.delimiter)
         self._cursor = 0
 
 

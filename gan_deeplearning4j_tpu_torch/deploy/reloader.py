@@ -16,7 +16,7 @@ One background thread runs the reload cycle against a live
    ``backoff_max``).
 2. **warm** — the candidate :class:`~serving.engine.ServingEngine` is
    constructed and warmed OFF-THREAD (this thread), against the live
-   engine's bucket ladder, replica count and device, with
+   engine's bucket ladder and replica devices (its device tuple), with
    ``export_gauge=False`` so a warming candidate never claims the
    process-wide ``serving_generation`` gauge. On the card warming
    captures every (kind, bucket) graph, so the new engine makes no
@@ -69,16 +69,17 @@ class ReloadBusy(RuntimeError):
 
 def _default_build(candidate: BundleCandidate, live):
     """Construct the candidate engine against the LIVE engine's shape:
-    same bucket ladder, same replica count, same device — so its warmup
-    captures exactly the graphs the batcher will route to after the
-    swap."""
+    same bucket ladder, same replica devices (the live engine's device
+    tuple, so a swap on a repeated-device engine keeps its placement) — so
+    its warmup captures exactly the graphs the batcher will route to after
+    the swap."""
     from gan_deeplearning4j_tpu_torch.serving.engine import ServingEngine
 
     return ServingEngine.from_bundle(
         candidate.path,
         buckets=live.buckets,
         replicas=live.replica_count,
-        device=live.device,
+        devices=live.devices,
         export_gauge=False,
     )
 
@@ -265,7 +266,8 @@ class ReloadController:
         manifest ladder > a ladder solved from the incumbent batcher's
         histogram > the live ladder (same top + budget either way, so
         the batcher's ``max_batch`` and chunking contract carry across
-        the swap); replica count always the live engine's."""
+        the swap); replica devices always the live engine's (its device
+        tuple)."""
         from gan_deeplearning4j_tpu_torch.serving.engine import ServingEngine
         from gan_deeplearning4j_tpu_torch.serving.ladder import manifest_ladder
 
@@ -276,7 +278,7 @@ class ReloadController:
             candidate.path,
             buckets=buckets,
             replicas=live.replica_count,
-            device=live.device,
+            devices=live.devices,
             export_gauge=False,
         )
 

@@ -98,16 +98,17 @@ def write_cost_block(bundle_dir: str, block: dict) -> dict:
 
 def measure_bundle_cost(bundle_dir: str, *, buckets=None, replicas: int = 1,
                         rounds: int = DEFAULT_ROUNDS, write: bool = True,
-                        device=None) -> dict:
+                        device=None, devices=None) -> dict:
     """Build the bundle's engine off to the side (no generation gauge
-    claim) on ``device`` (the card unless the caller asks for the CPU),
+    claim) on ``device`` (the card unless the caller asks for the CPU) or
+    the first ``replicas`` of an explicit ``devices`` pool,
     measure it and, by default, write the ``cost`` block into its
     manifest. ``buckets=None`` takes the bundle's learned ladder when its
     manifest has one."""
     from gan_deeplearning4j_tpu_torch.serving.engine import ServingEngine
 
     engine = ServingEngine.from_bundle(bundle_dir, buckets=buckets, replicas=replicas,
-                                       device=device, export_gauge=False)
+                                       device=device, devices=devices, export_gauge=False)
     block = measure_engine_cost(engine, rounds=rounds)
     if write:
         write_cost_block(bundle_dir, block)

@@ -55,11 +55,18 @@ functions (:func:`run_single_host_drill`, :func:`run_multihost_drill`) and
 DCGAN-MNIST model at full width. :func:`run_worker` can also send the
 worker one SIGUSR2 once its first generation lands (``trace_dir``), the
 on-demand ``torch.profiler`` capture, and report what the trace holds.
+With ``overlap=True`` the phase functions run worker lifetimes that do not
+depend on each other at the same time (the single-writer oracle beside the
+kill/relaunch chain; the mesh drill's two oracles, its kill and commit-
+window gangs, and its two elastic resumes, in pairs): the same processes,
+faults and invariants in fewer rounds of boots. The CLI keeps the JAX
+drill's one-at-a-time order.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import shutil
@@ -315,13 +322,28 @@ def _log_shard_owners(shards: list, what: str) -> None:
             f"({files})")
 
 
+def _pair(overlap: bool, first, second) -> tuple:
+    """Run two independent worker lifetimes: at once on two threads when
+    ``overlap``, else one after the other. Returns both results."""
+    if not overlap:
+        return first(), second()
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(2) as pool:
+        a, b = pool.submit(first), pool.submit(second)
+        return a.result(), b.result()
+
+
 def run_multihost_drill(workload: dict, workdir: str, n: int, total: int,
                         publish_every: int, seed: int,
                         kill_step: int | None = None,
                         mesh_timeout: float = 15.0, smoke: bool = False,
-                        timeout_s: float = 600.0) -> dict:
+                        timeout_s: float = 600.0, overlap: bool = False) -> dict:
     """The mesh-plane drill (see module docstring) over ``workload``.
-    Returns the BENCH payload; ``invariants`` within gate the exit code."""
+    Returns the BENCH payload; ``invariants`` within gate the exit code.
+    ``overlap`` runs the independent lifetimes in pairs (module
+    docstring): the oracles, the kill gang beside the commit-window gang,
+    the two recovering gangs, the two elastic resumes."""
     from gan_deeplearning4j_tpu_torch.resilience import (
         CheckpointStore,
         FaultSchedule,
@@ -349,14 +371,16 @@ def run_multihost_drill(workload: dict, workdir: str, n: int, total: int,
     # -- phase 1: single-worker oracles (ground truth) -------------------
     log(f"oracle: single worker, {total} and {total_ext} uninterrupted "
         f"steps")
-    rc, oracle, oracle_wall = run_worker(
-        workload, os.path.join(workdir, "store_oracle"), total,
-        publish_every, os.path.join(workdir, "summary_oracle.json"),
-        timeout_s=timeout_s)
-    rc2, oracle_ext, _ = run_worker(
-        workload, os.path.join(workdir, "store_oracle_ext"), total_ext,
-        publish_every, os.path.join(workdir, "summary_oracle_ext.json"),
-        timeout_s=timeout_s)
+    (rc, oracle, oracle_wall), (rc2, oracle_ext, _) = _pair(
+        overlap,
+        lambda: run_worker(
+            workload, os.path.join(workdir, "store_oracle"), total,
+            publish_every, os.path.join(workdir, "summary_oracle.json"),
+            timeout_s=timeout_s),
+        lambda: run_worker(
+            workload, os.path.join(workdir, "store_oracle_ext"), total_ext,
+            publish_every, os.path.join(workdir, "summary_oracle_ext.json"),
+            timeout_s=timeout_s))
     if (rc != 0 or oracle is None or oracle.get("status") != "completed"
             or rc2 != 0 or oracle_ext is None
             or oracle_ext.get("status") != "completed"):
@@ -370,7 +394,9 @@ def run_multihost_drill(workload: dict, workdir: str, n: int, total: int,
             if oracle["publish_count"] else 0.0),
     }
 
-    # -- phase 2: worker kill + straggler under coordinated publish ------
+    # -- phases 2 and 3: a worker kill + straggler under coordinated
+    # publish, and the coordinator killed inside the commit window, on
+    # stores of their own (in pairs with ``overlap``) ---------------------
     mesh_store = os.path.join(workdir, "store_mesh")
     if kill_step is None:
         seeded = FaultSchedule.seeded(seed, total, kinds=("kill",))
@@ -383,9 +409,21 @@ def run_multihost_drill(workload: dict, workdir: str, n: int, total: int,
     ])
     schedule_path = os.path.join(workdir, "faults_mesh.json")
     schedule.to_json(schedule_path)
+    commit_store = os.path.join(workdir, "store_mesh_commit")
+    window_step = 2 * publish_every  # publish 1 must land, publish 2 dies
+    schedule = FaultSchedule([
+        FaultSpec(kind="kill_committed", step=window_step),
+    ])
+    commit_schedule_path = os.path.join(workdir, "faults_commit.json")
+    schedule.to_json(commit_schedule_path)
     log(f"mesh kill/recover: {n} workers, straggler at publish "
-        f"{publish_every}, SIGKILL worker {victim} at step {kill_step}")
-    gang1 = gang(mesh_store, total, "g1", {victim: schedule_path})
+        f"{publish_every}, SIGKILL worker {victim} at step {kill_step}; "
+        f"commit-window kill: coordinator dies after the commit marker "
+        f"of the publish at step {window_step}, before the rename")
+    gang1, gang3 = _pair(
+        overlap,
+        lambda: gang(mesh_store, total, "g1", {victim: schedule_path}),
+        lambda: gang(commit_store, total, "g3", {0: commit_schedule_path}))
     rcs = [rc for rc, _, _ in gang1]
     invariants["mh_kill_observed"] = rcs[victim] is not None and \
         rcs[victim] < 0
@@ -399,10 +437,39 @@ def run_multihost_drill(workload: dict, workdir: str, n: int, total: int,
         and latest is not None and latest.step <= kill_step)
     log(f"gang g1 rcs={rcs}; latest valid step="
         f"{latest.step if latest else None}")
+    rcs3 = [rc for rc, _, _ in gang3]
+    store = CheckpointStore(commit_store)
+    latest = store.latest_valid()
+    leftovers = stage_dirs(commit_store)
+    # the half-committed round: marker written, never renamed — it must be
+    # invisible to latest_valid() (fall back to the previous generation)
+    # and absent from the ledger
+    attempted = (store.published()[-1] + 1) if store.published() else 0
+    invariants["mh_commit_window_all_or_nothing"] = (
+        rcs3[0] is not None and rcs3[0] < 0
+        and any(rc == 76 for rc in rcs3[1:])
+        and bool(leftovers)
+        and any(os.path.exists(os.path.join(commit_store, d,
+                                            "MANIFEST.json"))
+                for d in leftovers)
+        and latest is not None
+        and latest.step == publish_every
+        and store.entry(attempted) == {})
+    log(f"gang g3 rcs={rcs3}; leftovers={leftovers}; latest="
+        f"{latest.step if latest else None}")
+    results["commit_window"] = {
+        "window_step": window_step,
+        "gang_rcs": rcs3,
+        "stage_leftovers": leftovers,
+        "fallback_step": latest.step if latest else None,
+    }
 
-    t_recover = time.perf_counter()
-    gang2 = gang(mesh_store, total, "g2")
-    recovery_wall = time.perf_counter() - t_recover
+    def recover():
+        t_recover = time.perf_counter()
+        return gang(mesh_store, total, "g2"), time.perf_counter() - t_recover
+
+    (gang2, recovery_wall), gang4 = _pair(
+        overlap, recover, lambda: gang(commit_store, total, "g4"))
     digests2 = _gang_digests(gang2)
     shards2 = _gang_shards(gang2)
     invariants["mh_recovered"] = len(digests2) == n
@@ -439,56 +506,18 @@ def run_multihost_drill(workload: dict, workdir: str, n: int, total: int,
             if mesh_publish_mean
             and results["oracle"]["checkpoint_write_s_mean"] else None),
     }
-
-    # -- phase 3: coordinator killed inside the commit window ------------
-    commit_store = os.path.join(workdir, "store_mesh_commit")
-    window_step = 2 * publish_every  # publish 1 must land, publish 2 dies
-    schedule = FaultSchedule([
-        FaultSpec(kind="kill_committed", step=window_step),
-    ])
-    commit_schedule_path = os.path.join(workdir, "faults_commit.json")
-    schedule.to_json(commit_schedule_path)
-    log(f"commit-window kill: coordinator dies after the commit marker "
-        f"of the publish at step {window_step}, before the rename")
-    gang3 = gang(commit_store, total, "g3", {0: commit_schedule_path})
-    rcs3 = [rc for rc, _, _ in gang3]
-    store = CheckpointStore(commit_store)
-    latest = store.latest_valid()
-    leftovers = stage_dirs(commit_store)
-    # the half-committed round: marker written, never renamed — it must be
-    # invisible to latest_valid() (fall back to the previous generation)
-    # and absent from the ledger
-    attempted = (store.published()[-1] + 1) if store.published() else 0
-    invariants["mh_commit_window_all_or_nothing"] = (
-        rcs3[0] is not None and rcs3[0] < 0
-        and any(rc == 76 for rc in rcs3[1:])
-        and bool(leftovers)
-        and any(os.path.exists(os.path.join(commit_store, d,
-                                            "MANIFEST.json"))
-                for d in leftovers)
-        and latest is not None
-        and latest.step == publish_every
-        and store.entry(attempted) == {})
-    log(f"gang g3 rcs={rcs3}; leftovers={leftovers}; latest="
-        f"{latest.step if latest else None}")
-    gang4 = gang(commit_store, total, "g4")
     digests4 = _gang_digests(gang4)
     invariants["mh_commit_window_recovered"] = (
         len(digests4) == n
         and digests4[0] == oracle.get("state_digests")
         and not stage_dirs(commit_store))  # the corpse round was swept
-    results["commit_window"] = {
-        "window_step": window_step,
-        "gang_rcs": rcs3,
-        "stage_leftovers": leftovers,
-        "fallback_step": latest.step if latest else None,
-    }
 
     # -- phase 4: elastic resume — M=2-written store onto N∈{1,2} --------
     elastic: dict = {}
-    for shape, label in ((1, "mesh_to_single"), (n, "mesh_to_mesh")):
+    shapes = ((1, "mesh_to_single"), (n, "mesh_to_mesh"))
+
+    def elastic_digests(shape):
         src = os.path.join(workdir, f"store_elastic_{shape}")
-        shutil.copytree(mesh_store, src)
         log(f"elastic resume: {n}-written store extended to {total_ext} "
             f"steps on {shape} worker(s)")
         if shape == 1:
@@ -496,13 +525,17 @@ def run_multihost_drill(workload: dict, workdir: str, n: int, total: int,
                 workload, src, total_ext, publish_every,
                 os.path.join(workdir, "summary_elastic1.json"),
                 timeout_s=timeout_s)
-            digests = [summary.get("state_digests")] if rc == 0 and summary \
+            return [summary.get("state_digests")] if rc == 0 and summary \
                 else []
-        else:
-            digests = _gang_digests(run_gang(
-                workload, src, total_ext, publish_every, shape,
-                f"g5-{shape}", workdir, mesh_timeout_s=mesh_timeout,
-                timeout_s=timeout_s))
+        return _gang_digests(run_gang(
+            workload, src, total_ext, publish_every, shape,
+            f"g5-{shape}", workdir, mesh_timeout_s=mesh_timeout,
+            timeout_s=timeout_s))
+
+    for shape, _ in shapes:
+        shutil.copytree(mesh_store, os.path.join(workdir, f"store_elastic_{shape}"))
+    found = _pair(overlap, *(functools.partial(elastic_digests, shape) for shape, _ in shapes))
+    for (shape, label), digests in zip(shapes, found):
         ok = bool(digests) and all(
             d == oracle_ext.get("state_digests") for d in digests)
         invariants[f"mh_elastic_{label}"] = ok
@@ -537,14 +570,16 @@ def run_single_host_drill(workload: dict, workdir: str, total: int,
                           kill_step: int | None = None,
                           relaunch_budget: int = 5, smoke: bool = False,
                           timeout_s: float = 600.0,
-                          trace_dir: str | None = None) -> dict:
+                          trace_dir: str | None = None,
+                          overlap: bool = False) -> dict:
     """The single-writer drill (phases 1-4 of the module docstring) over
     ``workload``. Returns the BENCH payload; ``invariants`` within gate
     the exit code. With ``trace_dir`` the oracle worker gets one SIGUSR2
     once its first generation lands, and ``results["signal_capture"]``
     reports what its capture holds (:func:`trace_report`); the oracle is
     what the recovered run must equal bit for bit, so the capture is held
-    to the same invariant."""
+    to the same invariant. ``overlap`` runs the oracle beside the
+    kill/relaunch chain (phase 2), which does not read it."""
     from gan_deeplearning4j_tpu_torch.resilience import (
         CheckpointStore,
         FaultSchedule,
@@ -564,12 +599,56 @@ def run_single_host_drill(workload: dict, workdir: str, total: int,
     results: dict = {}
     invariants: dict = {}
 
-    # -- phase 1: oracle ------------------------------------------------
+    def fault_chain():
+        """Phase 2: the seeded kill, then relaunches until a run
+        completes (or the budget is spent)."""
+        fault_store = os.path.join(workdir, "store_fault")
+        log(f"kill/recover: SIGKILL scheduled at step {kill_step}")
+        relaunches = 0
+        killed_observed = False
+        recovery = None
+        final = None
+        while relaunches <= relaunch_budget:
+            first = relaunches == 0
+            rc, summary, wall = run_worker(
+                workload, fault_store, total, publish_every,
+                os.path.join(workdir, f"summary_fault_{relaunches}.json"),
+                schedule_path=schedule_path if first else None,
+                timeout_s=timeout_s)
+            if rc == 0 and summary is not None:
+                final = summary
+                if not first and recovery is None:
+                    restores = [e for e in summary.get("events", [])
+                                if e.get("event") == "restore"]
+                    restored_step = restores[0]["step"] if restores else 0
+                    recovery = {
+                        "relaunch_wall_s": wall,
+                        "restore_s": summary.get("restore_s"),
+                        "time_to_first_step_s": summary.get(
+                            "time_to_first_step_s"),
+                        "restored_step": restored_step,
+                        "lost_steps": kill_step - restored_step,
+                    }
+                break
+            if rc is not None and rc < 0:
+                killed_observed = True
+                log(f"worker died by signal (rc={rc}) — relaunching")
+                relaunches += 1
+                continue
+            log(f"worker exited rc={rc} unexpectedly — drill failed")
+            break
+        return fault_store, relaunches, killed_observed, recovery, final
+
+    # -- phase 1: oracle (beside phase 2 with ``overlap``) ---------------
     log(f"oracle: {total} uninterrupted steps, publish every {publish_every}")
-    rc, oracle, oracle_wall = run_worker(
-        workload, os.path.join(workdir, "store_oracle"), total,
-        publish_every, os.path.join(workdir, "summary_oracle.json"),
-        timeout_s=timeout_s, trace_dir=trace_dir)
+    (rc, oracle, oracle_wall), chain = _pair(
+        overlap,
+        lambda: run_worker(
+            workload, os.path.join(workdir, "store_oracle"), total,
+            publish_every, os.path.join(workdir, "summary_oracle.json"),
+            timeout_s=timeout_s, trace_dir=trace_dir),
+        fault_chain)
+    fault_store, relaunches, killed_observed, recovery, final = chain
     if rc != 0 or oracle is None or oracle.get("status") != "completed":
         log(f"oracle run failed (rc={rc}) — cannot drill")
         return {"ok": False, "invariants": {"oracle_completed": False}}
@@ -593,42 +672,7 @@ def run_single_host_drill(workload: dict, workdir: str, total: int,
         invariants["signal_capture_written"] = bool(
             results["signal_capture"]["traces"])
 
-    # -- phase 2: kill + relaunch ---------------------------------------
-    fault_store = os.path.join(workdir, "store_fault")
-    log(f"kill/recover: SIGKILL scheduled at step {kill_step}")
-    relaunches = 0
-    killed_observed = False
-    recovery = None
-    final = None
-    while relaunches <= relaunch_budget:
-        first = relaunches == 0
-        rc, summary, wall = run_worker(
-            workload, fault_store, total, publish_every,
-            os.path.join(workdir, f"summary_fault_{relaunches}.json"),
-            schedule_path=schedule_path if first else None,
-            timeout_s=timeout_s)
-        if rc == 0 and summary is not None:
-            final = summary
-            if not first and recovery is None:
-                restores = [e for e in summary.get("events", [])
-                            if e.get("event") == "restore"]
-                restored_step = restores[0]["step"] if restores else 0
-                recovery = {
-                    "relaunch_wall_s": wall,
-                    "restore_s": summary.get("restore_s"),
-                    "time_to_first_step_s": summary.get(
-                        "time_to_first_step_s"),
-                    "restored_step": restored_step,
-                    "lost_steps": kill_step - restored_step,
-                }
-            break
-        if rc is not None and rc < 0:
-            killed_observed = True
-            log(f"worker died by signal (rc={rc}) — relaunching")
-            relaunches += 1
-            continue
-        log(f"worker exited rc={rc} unexpectedly — drill failed")
-        break
+    # -- phase 2: kill + relaunch (above) -------------------------------
     results["kill_recover"] = {
         "kill_step": kill_step,
         "killed_observed": killed_observed,

@@ -6,6 +6,9 @@ one thing the serving path needs from it: which device runs the model.
 - ``resolve_device(None)`` is the card, ``cuda:0``. When CUDA is absent it
   raises: an entry point never continues on the CPU by itself. The CPU
   path exists only for a caller that passes ``device="cpu"`` (the tests).
+- ``resolve_devices(device, replicas, devices)`` is the counterpart of the
+  JAX engine's ``jax.local_devices()[:replicas]``: the serving engine's
+  tuple of replica devices.
 - ``pin_fp32_precision()`` makes fp32 convolutions and matmuls run in full
   fp32 on the card. cuDNN's default lets fp32 convolutions run in TF32
   (about three decimal digits), while the JAX reference computes them in
@@ -18,7 +21,7 @@ one thing the serving path needs from it: which device runs the model.
 from __future__ import annotations
 
 import os
-from typing import Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -39,6 +42,45 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def resolve_devices(device: DeviceLike = None, replicas=1,
+                    devices: Optional[Sequence[DeviceLike]] = None) -> Tuple[torch.device, ...]:
+    """The devices of a multi-replica serving engine, one per replica.
+
+    - On the card (``device`` None or CUDA): the cards from ``device``'s
+      index on (``cuda:0 ... cuda:R-1`` for the default), one replica
+      each. ``replicas=None`` or ``"all"`` takes every one of them.
+    - ``device="cpu"``: one device, so one replica.
+    - ``devices=``: an explicit pool of devices, which may repeat one, in
+      place of the cards. It is the counterpart of the JAX tests' forced
+      host devices (XLA's ``--xla_force_host_platform_device_count``):
+      ``devices=("cpu", "cpu"), replicas=2`` is two replicas on the CPU,
+      and ``devices=("cuda:0", "cuda:0"), replicas=2`` two replicas on one
+      card, each with its own stream, graph pool and captures. ``device``
+      is ignored then.
+
+    Either way ``replicas`` takes the first R devices of the pool, as the
+    JAX engine takes ``jax.local_devices()[:replicas]``.
+
+    ``replicas`` above the devices available raises ``ValueError`` with the
+    JAX engine's wording; requesting CUDA without a card raises
+    ``RuntimeError`` as :func:`resolve_device` does (no fallback to the
+    CPU)."""
+    if devices is not None:
+        pool = [resolve_device(d) for d in devices]
+    else:
+        first = resolve_device(device)
+        if first.type == "cuda":
+            pool = [torch.device("cuda", i) for i in range(first.index, torch.cuda.device_count())]
+        else:
+            pool = [first]
+    if replicas is None or replicas == "all":
+        replicas = len(pool)
+    replicas = int(replicas)
+    if not 1 <= replicas <= len(pool):
+        raise ValueError(f"replicas={replicas} but {len(pool)} local device(s) are available")
+    return tuple(pool[:replicas])
 
 
 def pin_fp32_precision() -> None:

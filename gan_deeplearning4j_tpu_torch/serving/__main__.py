@@ -14,8 +14,9 @@ JSON API until interrupted, on the card by default::
 
 The flags are the JAX server's (``gan_deeplearning4j_tpu/serving/
 __main__.py``) but ``--compilation-cache`` (a capture is not cached across
-processes), plus ``--device``. ``--replicas`` takes ``all`` or 1: more than
-one replica waits for ROADMAP.md queue 1, 'Serving, the rest'.
+processes), plus ``--device``. ``--replicas`` takes an int or ``all`` (every
+card, the default), as the JAX CLI's does; a count above the host's cards
+fails at engine construction with the JAX engine's message.
 
 Once the engine is warm the server logs one line, ``boot stamps {...}``:
 the wall-clock times (Unix seconds) at which the process started, entered
@@ -52,14 +53,9 @@ def _parse_replicas(text: str):
     if text == "all":
         return "all"
     try:
-        replicas = int(text)
+        return int(text)
     except ValueError:
         raise argparse.ArgumentTypeError(f"--replicas takes 'all' or an int, got {text!r}")
-    if replicas != 1:
-        raise argparse.ArgumentTypeError(
-            f"--replicas {replicas}: more than one replica is not ported yet "
-            f"(ROADMAP.md queue 1, 'Serving, the rest')")
-    return replicas
 
 
 #: the log line a warm server writes its boot stamps on
@@ -119,11 +115,11 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--timeout", type=float, default=5.0,
                    help="default per-request deadline (seconds)")
     p.add_argument("--replicas", type=_parse_replicas, default="all",
-                   help="devices to route batches across: 'all' (default) or "
-                        "1; the port serves one card")
+                   help="devices to route batches across: an int, or 'all' "
+                        "for every card (default)")
     p.add_argument("--pipeline-depth", type=int, default=None,
                    help="bound on dispatched-but-unfinished flushes "
-                        "(default: 2 on the card, 1 on the CPU)")
+                        "(default: 2 per replica on the card, 1 on the CPU)")
     p.add_argument("--warmup", choices=("eager", "sync", "off"), default="eager",
                    help="'eager' captures every (kind, bucket) on a background "
                         "thread (serve immediately, /healthz reports "

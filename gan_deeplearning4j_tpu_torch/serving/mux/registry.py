@@ -21,7 +21,7 @@ singleton never needed (docs/MULTIPLEX.md):
   *cold manifest* (bundle path + metadata; engine, batcher, and captured
   graphs dropped, the graphs under the process-wide capture lock). A cold
   variant re-warms through the same build path the reload plane uses
-  (``from_bundle`` against the registry's ladder and device, a sync warmup
+  (``from_bundle`` against the registry's ladder and devices, a sync warmup
   that captures every (kind, bucket), ``export_gauge=False``) when its
   weight returns.
 - **one lock for every cross-variant access** — ``lock`` guards the
@@ -217,8 +217,10 @@ class MuxRegistry:
 
     ``build`` is injectable for tests: ``(variant) -> engine``; the
     default loads ``ServingEngine.from_bundle`` against the registry's
-    bucket ladder, replica count and ``device`` (the card unless the
-    caller asks for the CPU) with the shared staging pool attached.
+    bucket ladder, replica count, ``device`` (the card unless the caller
+    asks for the CPU) and ``devices`` (an explicit device pool, as
+    ``runtime/device.py::resolve_devices`` takes it) with the shared
+    staging pool attached.
     ``batcher_kwargs`` applies to every variant's
     :class:`MicroBatcher` (``max_batch`` defaults to the ladder top)."""
 
@@ -227,13 +229,15 @@ class MuxRegistry:
                  batcher_kwargs: Optional[dict] = None,
                  build: Optional[Callable] = None,
                  staging_pool: Optional[SharedStagingPool] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 devices: Optional[Sequence[DeviceLike]] = None):
         if budget < 1:
             raise ValueError("residency budget must be >= 1")
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
         self.replicas = int(replicas)
         self.budget = int(budget)
         self.device = device
+        self.devices = None if devices is None else tuple(devices)
         self.pool = staging_pool or SharedStagingPool()
         self.splitter = WeightedSplitter()
         self._build = build or self._default_build
@@ -291,7 +295,7 @@ class MuxRegistry:
         (serving/ladder.py; each variant's traffic shapes its own
         buckets), else ``fallback_buckets`` (the reload plane passes a
         ladder solved from the incumbent's histogram), else the registry
-        default; replica count, device and the shared staging pool always. The
+        default; replica count, devices and the shared staging pool always. The
         registry-mode reload plane builds its candidates through this
         too, so adopted and re-warmed engines can never diverge in
         config."""
@@ -303,6 +307,7 @@ class MuxRegistry:
                      or self.buckets),
             replicas=self.replicas,
             device=self.device,
+            devices=self.devices,
             export_gauge=False,
             staging_pool=self.pool,
         )

@@ -347,9 +347,10 @@ def test_the_serving_cli_takes_the_reload_canary_and_telemetry_flags(tmp_path, c
     assert (args.canary_samples, args.canary_feature, args.canary_fid_ratio,
             args.canary_fid_slack, args.canary_acc_drop) == (64, "dis_features", 2.0, 1.0, 0.1)
     assert parser.parse_args(["--replicas", "1"]).replicas == 1
+    assert parser.parse_args(["--replicas", "2"]).replicas == 2
     with pytest.raises(SystemExit):
-        parser.parse_args(["--replicas", "2"])
-    assert "'Serving, the rest'" in capsys.readouterr().err
+        parser.parse_args(["--replicas", "two"])
+    assert "'all' or an int" in capsys.readouterr().err
 
 
 def test_the_deploy_probe_cli_prints_one_probe(tmp_path, capsys):

@@ -625,7 +625,38 @@ class TestDrillSmoke:
         assert series["resilience_restores_total"]["series"][0]["value"] >= 1
 
 
+    def test_the_overlapped_drill_holds_every_invariant(self, tmp_path):
+        """``overlap=True`` (what ``chip_smoke.py`` (x2) passes) runs the
+        oracle beside the kill/relaunch chain: the same invariants hold, and
+        the payload has the sequential run's keys."""
+        from gan_deeplearning4j_tpu_torch.resilience import drill
+
+        workdir = str(tmp_path / "work")
+        os.makedirs(workdir)
+        workload = drill.make_workload(workdir, 1, use_accelerator=False)
+        payload = drill.run_single_host_drill(workload, workdir, 12, 3, 1, smoke=True,
+                                              timeout_s=240.0, overlap=True)
+        assert set(payload["results"]) >= {"oracle", "kill_recover", "bit_exact", "corruption"}
+        assert payload["results"]["kill_recover"]["relaunches"] >= 1
+        assert payload["ok"] is True, payload["invariants"]
+
+
 class TestMultihostDrill:
+    @pytest.mark.slow
+    def test_the_overlapped_multihost_drill_holds_every_invariant(self, tmp_path):
+        """``overlap=True`` (what ``chip_smoke.py`` (x3) passes) runs the
+        oracles, the kill and commit-window gangs, the recovering gangs and
+        the elastic resumes in pairs: every invariant holds."""
+        from gan_deeplearning4j_tpu_torch.resilience import drill
+
+        workdir = str(tmp_path / "work")
+        os.makedirs(workdir)
+        workload = drill.make_workload(workdir, 1, use_accelerator=False)
+        payload = drill.run_multihost_drill(workload, workdir, 2, 6, 2, 1, mesh_timeout=30.0,
+                                            smoke=True, timeout_s=240.0, overlap=True)
+        assert set(payload["results"]) >= {"oracle", "kill_recover", "commit_window", "elastic"}
+        assert payload["ok"] is True, payload["invariants"]
+
     @pytest.mark.slow
     def test_multihost_drill_smoke(self, tmp_path):
         out_json = os.path.join(str(tmp_path), "drill_mh.json")

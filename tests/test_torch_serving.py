@@ -255,9 +255,15 @@ def test_bundles_this_slice_refuses_or_loads(tmp_path, tiny_bundle, extra, ok):
 
 
 def test_more_than_one_replica_is_refused(engine):
-    with pytest.raises(ValueError, match="ROADMAP"):
-        ServingEngine({"generator": (tiny_generator(), tiny_generator().init(device="cpu"))},
-                      replicas=2, device="cpu")
+    """More replicas than devices is refused with the JAX engine's message
+    (the CPU is one device; a pool of two holds two)."""
+    gen = tiny_generator()
+    models = {"generator": (gen, gen.init(device="cpu"))}
+    with pytest.raises(ValueError, match=r"^replicas=2 but 1 local device\(s\) are available$"):
+        ServingEngine(models, replicas=2, device="cpu")
+    with pytest.raises(ValueError, match=r"^replicas=3 but 2 local device\(s\) are available$"):
+        ServingEngine(models, replicas=3, devices=("cpu", "cpu"))
+    assert ServingEngine(models, replicas="all", devices=("cpu", "cpu")).replica_count == 2
 
 
 def test_default_device_is_the_card_with_no_fallback(tmp_path):
