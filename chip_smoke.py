@@ -295,6 +295,20 @@ z. the MNIST DCGAN bundle (ladder 1, 8, 32, 128) on every card the host
    bit-identical and within (a)'s limits of one card at the global batch;
    with one card a line ``{"phase": "cross_card", "ran": false, ...}``.
    ``--only replicas`` runs (z) alone.
+aa. the static analyzer (``gan_deeplearning4j_tpu_torch/analysis``): (aa1) it
+   reads the checkout (the port and this script) on the card's host with
+   every rule: the files, the seconds, no active finding and no
+   suppression; (aa2) for JG006, JG005, JG004 and JG002 with JG015, one
+   true positive and one true negative (``AA_PAIRS``), each run on
+   ``cuda:0`` and analyzed: a static output's alias read after a later
+   replay reads the later result and a clone reads its own; ``.item()``
+   inside a capture ends it with CUDA's capture error (in a child process)
+   and a read after the replay is right; 4 captures in a loop make 4 graphs
+   with ``memory_reserved`` rising and one capture replayed 4 times keeps it
+   flat; an unfenced wall-clock delta around 20 fp32 4096² matmuls reads
+   under half their CUDA-event time and a fenced one at least all of it.
+   The rule fires on each true positive and is silent on each true
+   negative. ``--only analysis`` runs (aa) alone.
 
 Every number is printed beside the card's name and power limit. The
 ``kernels`` line lists ``quant_dense`` (the JAX package has no Pallas
@@ -1588,8 +1602,12 @@ def _graph_ms(fn, cold: bool = False) -> float:
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(stream)
+    from gan_deeplearning4j_tpu_torch.runtime.capture import capture_guard
+
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # the port's captures hold the capture lock with the cyclic collector
+    # off: another graph destroyed mid-capture would end this one
+    with capture_guard(), torch.cuda.graph(graph):
         for _ in range(GRAPH_LAUNCHES):
             fn()
     graph.replay()
@@ -4110,7 +4128,8 @@ def _replicas_fp32(directory: str, placement: dict) -> tuple:
     before = engine.stats()["replica_dispatches"]
     for i in range(16):
         kind = engine.kinds[i % len(engine.kinds)]
-        engine.finalize(engine.dispatch(kind, [_rows(kind, (1, 8, 21, 128)[i % 4], rng)]))
+        flight = engine.dispatch(kind, [_rows(kind, (1, 8, 21, 128)[i % 4], rng)])
+        engine.finalize(flight)
     routed = [a - b for a, b in zip(engine.stats()["replica_dispatches"], before)]
     flights = [engine.dispatch("classify", [_rows("classify", 1, rng)]) for _ in range(r)]
     lanes = sorted(f.lane for f in flights)
@@ -4398,6 +4417,204 @@ def _phase_replicas(x, y, directory: str, int8_dir: str, card: str) -> dict:
     return {"fp32": fp32, "int8": int8, "timing": timing, "cross_card": cross, "seconds": seconds}
 
 
+# -- (aa) the static analyzer: the tree, and the device hazards its rules name ------------
+
+#: (aa2)'s pairs: each rule's true positive and true negative, as source that
+#: runs on the card (``run(device)``) and that the analyzer reads; the two
+#: sides of a pair differ only where a template's field says. JG002 and
+#: JG015 share one pair (the sink in it is what JG015 adds to JG002's window).
+_AA_HEADER = """import time
+
+import torch
+
+from gan_deeplearning4j_tpu_torch.runtime.capture import capture_guard
+"""
+_AA_STALE = _AA_HEADER + """
+
+def run(device):
+    x = torch.ones(4, device=device)
+    graph = torch.cuda.CUDAGraph()
+    with capture_guard(), torch.cuda.graph(graph):
+        y = x * 2
+    x.fill_(1)
+    graph.replay()
+    a = {bind}
+    x.fill_(3)
+    graph.replay()
+    return {{"read": float(a[0]), "meant": 2.0}}
+"""
+_AA_READ = _AA_HEADER + """
+
+def run(device):
+    x = torch.ones(4, device=device)
+    graph = torch.cuda.CUDAGraph()
+    with capture_guard(), torch.cuda.graph(graph):
+        y = x * 2
+        total = y.sum(){read_inside}
+    {replay}return {{"total": total{read_after}}}
+"""
+_AA_LOOP = _AA_HEADER + """
+
+def run(device):
+    x = torch.ones(1 << 20, device=device)
+    graphs, reserved = [], [torch.cuda.memory_reserved(device)]
+{body}    return {{"graphs": len(graphs), "replays": 4, "reserved": reserved}}
+"""
+_AA_TIMED = _AA_HEADER + """
+
+class Histogram:
+    def __init__(self):
+        self.values = []
+
+    def observe(self, value):
+        self.values.append(value)
+
+
+def work(a, b):
+    for _ in range(20):
+        c = a @ b
+    return c
+
+
+def run(device):
+    a = torch.randn(4096, 4096, device=device)
+    b = torch.randn(4096, 4096, device=device)
+    work(a, b)
+    torch.cuda.synchronize()
+    hist = Histogram()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    work(a, b)
+    end.record()
+{close}    return {{"wall_ms": hist.values[0] * 1e3, "event_ms": start.elapsed_time(end)}}
+"""
+AA_PAIRS = {
+    "JG006": (_AA_STALE.format(bind="y"), _AA_STALE.format(bind="y.clone()")),
+    "JG005": (_AA_READ.format(read_inside=".item()", replay="", read_after=""),
+              _AA_READ.format(read_inside="", replay="graph.replay()\n    ",
+                              read_after=".item()")),
+    "JG004": (_AA_LOOP.format(body="""    for _ in range(4):
+        graph = torch.cuda.CUDAGraph()
+        with capture_guard(), torch.cuda.graph(graph):
+            y = x * 2
+        graph.replay()
+        graphs.append(graph)
+        reserved.append(torch.cuda.memory_reserved(device))
+"""), _AA_LOOP.format(body="""    graph = torch.cuda.CUDAGraph()
+    with capture_guard(), torch.cuda.graph(graph):
+        y = x * 2
+    graphs.append(graph)
+    for _ in range(4):
+        graph.replay()
+        reserved.append(torch.cuda.memory_reserved(device))
+""")),
+    "JG002+JG015": (_AA_TIMED.format(close="""    hist.observe(time.perf_counter() - t0)
+    end.synchronize()
+"""), _AA_TIMED.format(close="""    torch.cuda.synchronize()
+    hist.observe(time.perf_counter() - t0)
+""")),
+}
+#: run in a child process: a broken capture must not harm this one
+AA_CHILD = "JG005"
+AA_CHILD_TIMEOUT_S = 120
+#: what CUDA says when a capture meets a call it does not permit
+AA_CAPTURE_ERROR = re.compile(r"operation not permitted when stream is capturing"
+                              r"|cudaErrorStreamCapture\w*")
+
+
+def _aa_codes(code: str, src: str) -> list:
+    """The active codes the port's analyzer gives ``src`` (all rules)."""
+    from gan_deeplearning4j_tpu_torch.analysis import analyze_sources
+
+    name = code.replace("+", "_").lower()
+    return sorted({f.code for f in analyze_sources({f"aa/{name}.py": src}).active})
+
+
+def _aa_exec(src: str) -> dict:
+    namespace = {"__name__": "aa_pair"}
+    exec(compile(src, "<aa pair>", "exec"), namespace)
+    out = namespace["run"]("cuda:0")
+    torch.cuda.synchronize()
+    return out
+
+
+def _aa_outcome(code: str, side: str, out: dict) -> bool:
+    """Whether the card showed the bug (``tp``) or the right result
+    (``tn``) for one side of a pair."""
+    if code == "JG006":
+        return (out["read"] != out["meant"]) if side == "tp" else out["read"] == out["meant"]
+    if code == "JG005":
+        if side == "tp":
+            return out["rc"] != 0 and bool(AA_CAPTURE_ERROR.search(out["stderr"]))
+        return out["total"] == 8.0
+    if code == "JG004":
+        rising = out["reserved"][-1] > out["reserved"][1]
+        return (out["graphs"] == 4 and rising) if side == "tp" else (out["graphs"] == 1 and not rising)
+    if side == "tp":  # JG002+JG015
+        return out["wall_ms"] < 0.5 * out["event_ms"]
+    return out["wall_ms"] >= out["event_ms"]
+
+
+def _phase_analysis(card: str) -> dict:
+    """(aa1) the port's analyzer over the checkout, on this host; (aa2)
+    each device pair run on the card and read by the analyzer: the rule
+    fires on the true positive, whose bug shows on the card, and is silent
+    on the true negative, whose result is right."""
+    from gan_deeplearning4j_tpu_torch.analysis import analyze_paths
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    # the child starts first and boots while the analyzer runs
+    child = subprocess.Popen(
+        [sys.executable, "-c", AA_PAIRS[AA_CHILD][0] + "\nprint(run('cuda:0'))\n"], cwd=root,
+        stdin=subprocess.DEVNULL, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        report = analyze_paths(["gan_deeplearning4j_tpu_torch", "chip_smoke.py"], root=root)
+        tree = {"files": report.files, "seconds": time.perf_counter() - t0,
+                "active": len(report.active), "baselined": len(report.baselined),
+                "suppressed": len(report.suppressed)}
+        print(json.dumps({"phase": "analysis_tree", **tree, "card": card}))
+        if report.active or report.suppressed:
+            raise AssertionError("(aa1) the port's analyzer finds:\n"
+                                 + "\n".join(f.render() for f in report.active + report.suppressed))
+        pairs, failed = {}, []
+        for code, (tp, tn) in AA_PAIRS.items():
+            row = {}
+            for side, src in (("tp", tp), ("tn", tn)):
+                codes = _aa_codes(code, src)
+                if code == AA_CHILD and side == "tp":
+                    stdout, stderr = child.communicate(timeout=AA_CHILD_TIMEOUT_S)
+                    out = {"rc": child.returncode, "stdout": stdout.strip()[-200:],
+                           "stderr": stderr, "error": next(
+                               (line for line in stderr.splitlines()
+                                if AA_CAPTURE_ERROR.search(line)), stderr.strip()[-300:])}
+                else:
+                    out = _aa_exec(src)
+                fired = all(c in codes for c in code.split("+"))
+                silent = not any(c in codes for c in code.split("+"))
+                shown = _aa_outcome(code, side, out)
+                ok = shown and (fired if side == "tp" else silent)
+                row[side] = {"codes": codes, "shown_on_card": shown, "ok": ok,
+                             **{k: v for k, v in out.items() if k != "stderr"}}
+                if not ok:
+                    failed.append(f"{code} {side}")
+            pairs[code] = row
+            print(json.dumps({"phase": "analysis_pair", "rule": code, **row, "card": card}))
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    seconds = time.perf_counter() - t_phase
+    print(json.dumps({"phase": "analysis_seconds", "seconds": seconds, "card": card}))
+    if failed:
+        raise AssertionError(f"(aa2) pairs not shown: {failed}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tree": tree, "pairs": pairs, "seconds": seconds}
+
+
 #: the phases ``--only`` can run by themselves: (x, y, directory, card); "reload"
 #: builds (t)'s bundle first, "replicas" the bundle and its int8 variant
 _TRAINING_ONLY = {"windows": lambda *a: _phase_windows(*a),
@@ -4408,7 +4625,8 @@ _TRAINING_ONLY = {"windows": lambda *a: _phase_windows(*a),
                   "resilience": lambda *a: _phase_resilience(*a),
                   "reload": lambda x, y, d, card: (_build_bundle(d), _phase_reload(d, d, card)),
                   "fleet": lambda *a: _phase_fleet(*a),
-                  "replicas": lambda x, y, d, card: _phase_replicas(x, y, d, _int8_variant(d), card)}
+                  "replicas": lambda x, y, d, card: _phase_replicas(x, y, d, _int8_variant(d), card),
+                  "analysis": lambda x, y, d, card: _phase_analysis(card)}
 
 
 def _int8_variant(directory: str) -> str:
@@ -4529,7 +4747,8 @@ def main(argv=None) -> int:
                          ("eval", lambda: _phase_eval(x, y, directory, card)),
                          ("resilience", lambda: _phase_resilience(x, y, directory, card)),
                          ("fleet", lambda: _phase_fleet(x, y, directory, card)),
-                         ("replicas", lambda: _phase_replicas(x, y, directory, int8_dir, card))):
+                         ("replicas", lambda: _phase_replicas(x, y, directory, int8_dir, card)),
+                         ("analysis", lambda: _phase_analysis(card))):
             t0 = time.perf_counter()
             try:
                 families[key] = run()
@@ -4539,7 +4758,7 @@ def main(argv=None) -> int:
             seconds[key] = time.perf_counter() - t0
     if failed:
         print(f"chip_smoke: family / bf16 / window / int8 / serving / zoo / parallel / eval / "
-              f"resilience / fleet / replicas phases "
+              f"resilience / fleet / replicas / analysis phases "
               f"failed: {failed}",
               file=sys.stderr)
         return 1
