@@ -307,8 +307,17 @@ aa. the static analyzer (``gan_deeplearning4j_tpu_torch/analysis``): (aa1) it
    with ``memory_reserved`` rising and one capture replayed 4 times keeps it
    flat; an unfenced wall-clock delta around 20 fp32 4096² matmuls reads
    under half their CUDA-event time and a fenced one at least all of it.
-   The rule fires on each true positive and is silent on each true
-   negative. ``--only analysis`` runs (aa) alone.
+   (aa3) the same for three flow rules (``AA3_PAIRS``, each side's modules
+   analyzed together): a replayer's static output held across a second
+   call through an imported helper and a ``functools.partial`` (JG010)
+   reads the later result and a clone reads its own; a prefetch transform
+   that reads ``.item()`` (JG019) keeps the host at least 0.9 of a window
+   of 32 fp32 4096² matmuls' CUDA-event time, and without it the host runs
+   ahead (under half); a 16 MiB write and fsync two calls down a loop of 16
+   replays (JG020) lowers the card's busy share below the loop without it.
+   The pair's rules, and no other, fire on each true positive, and no rule
+   fires on a true negative; (aa3) takes under 15 s. ``--only analysis`` runs (aa)
+   alone.
 
 Every number is printed beside the card's name and power limit. The
 ``kernels`` line lists ``quant_dense`` (the JAX package has no Pallas
@@ -1690,13 +1699,30 @@ def _phase_quant_kernel(fp32_dir: str, int8_dir: str, card: str) -> dict:
     host's launch cost included). Each row carries the shape's launch plan;
     the phase carries ``ptxas``'s registers, static shared memory and
     spills per kernel instance (``_ptxas_by_kernel``)."""
-    from gan_deeplearning4j_tpu_torch.ops import _native, linear
+    from gan_deeplearning4j_tpu_torch.ops import _native
+    from gan_deeplearning4j_tpu_torch.runtime.capture import capture_guard
     from gan_deeplearning4j_tpu_torch.utils.serializer import read_model
 
     qgraph, qparams, _, _ = read_model(os.path.join(int8_dir, "cv.zip"), device="cuda")
     _, fparams, _, _ = read_model(os.path.join(fp32_dir, "cv.zip"), device="cuda")
     rng = np.random.default_rng(SEED)
-    rows, worst = [], 0.0
+    rows = []
+    # one guard around the phase's captures: one collection, not one a capture
+    with capture_guard():
+        _quant_kernel_rows(qgraph, qparams, fparams, rng, rows)
+    worst = max(r["max_abs_err_vs_plain"] for r in rows)
+    out = {"phase": "quant_kernel", "shapes": rows, "max_abs_err": worst, "tolerance": "bit-equal",
+           "ptxas": _ptxas_by_kernel(_native.build_log()), "card": card}
+    print(json.dumps({"phase": "quant_kernel_ptxas", "ptxas": out["ptxas"], "card": card}))
+    for row in rows:
+        print(json.dumps({"phase": "quant_kernel", **row, "card": card}))
+    return out
+
+
+def _quant_kernel_rows(qgraph, qparams, fparams, rng, rows: list) -> None:
+    """(m)'s checks and timings, one row per (layer, n) appended to ``rows``."""
+    from gan_deeplearning4j_tpu_torch.ops import linear
+
     for name in ("dis_dense_layer_6", "dis_output_layer_7"):
         layer, p = qgraph.vertex(name).layer, qparams[name]
         a = float(layer.act_scale)
@@ -1711,7 +1737,6 @@ def _phase_quant_kernel(fp32_dir: str, int8_dir: str, card: str) -> dict:
             err = float((y - plain).abs().max())
             if not torch.equal(y, plain) or y.shape != (n, m):
                 raise AssertionError(f"quant_dense {name} n={n}: kernel differs from plain by {err}")
-            worst = max(worst, err)
             codes = linear.quantize_activations(x, a)
             lib_ms, lib_note = None, None
 
@@ -1753,12 +1778,6 @@ def _phase_quant_kernel(fp32_dir: str, int8_dir: str, card: str) -> dict:
                    **bound}
             row["kernel_share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
             rows.append(row)
-    out = {"phase": "quant_kernel", "shapes": rows, "max_abs_err": worst, "tolerance": "bit-equal",
-           "ptxas": _ptxas_by_kernel(_native.build_log()), "card": card}
-    print(json.dumps({"phase": "quant_kernel_ptxas", "ptxas": out["ptxas"], "card": card}))
-    for row in rows:
-        print(json.dumps({"phase": "quant_kernel", **row, "card": card}))
-    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -4515,6 +4534,8 @@ AA_PAIRS = {
     hist.observe(time.perf_counter() - t0)
 """)),
 }
+#: what (aa3) may take, its six runs and analyses together
+AA3_LIMIT_S = 15.0
 #: run in a child process: a broken capture must not harm this one
 AA_CHILD = "JG005"
 AA_CHILD_TIMEOUT_S = 120
@@ -4523,12 +4544,171 @@ AA_CAPTURE_ERROR = re.compile(r"operation not permitted when stream is capturing
                               r"|cudaErrorStreamCapture\w*")
 
 
+#: (aa3)'s pairs: the device hazards of three flow rules, as modules (name ->
+#: source; the last one's ``run(device)`` runs) that run on the card and that
+#: the analyzer reads together. JG010's helper is imported by its caller.
+_AA3_HELPER = _AA_HEADER + """
+X = Y = GRAPH = None
+
+
+def _capture(device):
+    global X, Y, GRAPH
+    X = torch.zeros(4, device=device)
+    GRAPH = torch.cuda.CUDAGraph()
+    with capture_guard(), torch.cuda.graph(GRAPH):
+        Y = X * 2
+
+
+def run(v, device="cuda:0"):
+    if GRAPH is None:
+        _capture(device)
+    X.fill_(v)
+    GRAPH.replay()
+    return {ret}
+"""
+_AA3_CALLER = """import functools
+
+from aa3_jg010_helper import run as replay_doubled
+
+
+def run(device):
+    double = functools.partial(replay_doubled, device=device)
+    a = double(1)
+    double(3)
+    return {"read": float(a[0]), "meant": 2.0}
+"""
+_AA3_PREFETCH = _AA_HEADER + """
+import numpy as np
+
+from gan_deeplearning4j_tpu_torch.data.iterator import ArrayDataSetIterator, DevicePrefetchIterator
+
+STEPS = 32
+
+
+def run(device):
+    a = torch.randn(4096, 4096, device=device)
+    level = torch.ones((), device=device)
+    inner = ArrayDataSetIterator(np.ones((STEPS * 8, 16), np.float32), batch_size=8)
+    it = DevicePrefetchIterator(inner, depth=1, device=device{transform})
+    c = a @ a
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    while it.has_next():
+        batch = it.next()
+        c = a @ a + batch.features.sum()
+    end.record()
+    t_fence = time.perf_counter()
+    end.synchronize()
+    wall = time.perf_counter() - t0
+    waited = time.perf_counter() - t_fence
+    host_ms = (wall - waited) * 1e3
+    return {{"host_ms": host_ms, "event_ms": start.elapsed_time(end),
+            "host_over_event": host_ms / start.elapsed_time(end), "steps": STEPS}}
+"""
+_AA3_IO = _AA_HEADER + """
+import os
+import tempfile
+
+STEPS = 16
+BLOB = bytes(16 << 20)
+
+
+def _write(path, blob):
+    with open(path, "wb") as fh:
+        fh.write(blob)
+        fh.flush()
+        os.fsync(fh.fileno())
+
+
+def log_step(directory, step):
+    _write(os.path.join(directory, "step.bin"), BLOB)
+
+
+def run(device):
+    a = torch.randn(4096, 4096, device=device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        b = a @ a
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with capture_guard(), torch.cuda.graph(graph):
+        b = a @ a
+        b = b @ a
+    graph.replay()
+    busy = []
+    with tempfile.TemporaryDirectory() as directory:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for step in range(STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            busy.append((start, end))
+{io}        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    event_ms = sum(s.elapsed_time(e) for s, e in busy)
+    return {{"event_ms": event_ms, "wall_ms": wall * 1e3, "busy_share": event_ms / (wall * 1e3),
+            "replay_ms": event_ms / STEPS, "steps": STEPS}}
+"""
+AA3_PAIRS = {
+    "JG010": ({"aa3_jg010_helper": _AA3_HELPER.format(ret="Y"), "aa3_jg010": _AA3_CALLER},
+              {"aa3_jg010_helper": _AA3_HELPER.format(ret="Y.clone()"), "aa3_jg010": _AA3_CALLER}),
+    "JG019": ({"aa3_jg019": _AA3_PREFETCH.format(
+                   transform=",\n                                transform=lambda batch: (level.item(), batch)[1]")},
+              {"aa3_jg019": _AA3_PREFETCH.format(transform="")}),
+    "JG020": ({"aa3_jg020": _AA3_IO.format(io="            log_step(directory, step)\n")},
+              {"aa3_jg020": _AA3_IO.format(io="")}),
+}
+
+
 def _aa_codes(code: str, src: str) -> list:
     """The active codes the port's analyzer gives ``src`` (all rules)."""
     from gan_deeplearning4j_tpu_torch.analysis import analyze_sources
 
     name = code.replace("+", "_").lower()
     return sorted({f.code for f in analyze_sources({f"aa/{name}.py": src}).active})
+
+
+def _aa3_codes(modules: dict) -> list:
+    """The active codes the port's analyzer gives a pair side's modules."""
+    from gan_deeplearning4j_tpu_torch.analysis import analyze_sources
+
+    return sorted({f.code for f in analyze_sources(
+        {f"{name}.py": src for name, src in modules.items()}).active})
+
+
+def _aa3_exec(modules: dict) -> dict:
+    """Each module made importable under its name, in order, and the last
+    one's ``run('cuda:0')``."""
+    import types
+
+    try:
+        for name, src in modules.items():
+            module = types.ModuleType(name)
+            sys.modules[name] = module
+            exec(compile(src, f"<aa3 {name}>", "exec"), module.__dict__)
+        out = module.run("cuda:0")
+        torch.cuda.synchronize()
+        return out
+    finally:
+        for name in modules:
+            sys.modules.pop(name, None)
+
+
+def _aa3_outcome(code: str, side: str, out: dict, other: dict) -> bool:
+    """Whether the card showed the bug (``tp``) or the right result (``tn``);
+    JG020's sides are judged against each other."""
+    if code == "JG010":
+        return (out["read"] != out["meant"]) if side == "tp" else out["read"] == out["meant"]
+    if code == "JG019":
+        ratio = out["host_over_event"]
+        return ratio >= 0.9 if side == "tp" else ratio < 0.5
+    tp, tn = (out, other) if side == "tp" else (other, out)
+    return tp["busy_share"] < tn["busy_share"]
 
 
 def _aa_exec(src: str) -> dict:
@@ -4560,7 +4740,10 @@ def _phase_analysis(card: str) -> dict:
     """(aa1) the port's analyzer over the checkout, on this host; (aa2)
     each device pair run on the card and read by the analyzer: the rule
     fires on the true positive, whose bug shows on the card, and is silent
-    on the true negative, whose result is right."""
+    on the true negative, whose result is right; (aa3) the same for the
+    flow rules' pairs (``AA3_PAIRS``), each side's modules read together,
+    the pair's code the only one the true positive gets and none on the
+    true negative."""
     from gan_deeplearning4j_tpu_torch.analysis import analyze_paths
 
     t_phase = time.perf_counter()
@@ -4602,17 +4785,36 @@ def _phase_analysis(card: str) -> dict:
                     failed.append(f"{code} {side}")
             pairs[code] = row
             print(json.dumps({"phase": "analysis_pair", "rule": code, **row, "card": card}))
+        # (aa3) the flow rules' device hazards
+        t_aa3 = time.perf_counter()
+        for code, sides in AA3_PAIRS.items():
+            outs = {side: _aa3_exec(modules) for side, modules in zip(("tp", "tn"), sides)}
+            row = {}
+            for side, modules in zip(("tp", "tn"), sides):
+                codes = _aa3_codes(modules)
+                shown = _aa3_outcome(code, side, outs[side], outs["tn" if side == "tp" else "tp"])
+                ok = shown and codes == ([code] if side == "tp" else [])
+                row[side] = {"codes": codes, "shown_on_card": shown, "ok": ok, **outs[side]}
+                if not ok:
+                    failed.append(f"{code} {side}")
+            pairs[code] = row
+            print(json.dumps({"phase": "analysis_pair", "subphase": "aa3", "rule": code, **row,
+                              "card": card}))
+        aa3_s = time.perf_counter() - t_aa3
     finally:
         if child.poll() is None:
             child.kill()
             child.wait()
     seconds = time.perf_counter() - t_phase
-    print(json.dumps({"phase": "analysis_seconds", "seconds": seconds, "card": card}))
+    print(json.dumps({"phase": "analysis_seconds", "seconds": seconds, "aa3_seconds": aa3_s,
+                      "card": card}))
     if failed:
-        raise AssertionError(f"(aa2) pairs not shown: {failed}")
+        raise AssertionError(f"(aa2), (aa3) pairs not shown: {failed}")
+    if aa3_s >= AA3_LIMIT_S:
+        raise AssertionError(f"(aa3) took {aa3_s:.1f} s, not under {AA3_LIMIT_S} s")
     gc.collect()
     torch.cuda.empty_cache()
-    return {"tree": tree, "pairs": pairs, "seconds": seconds}
+    return {"tree": tree, "pairs": pairs, "seconds": seconds, "aa3_seconds": aa3_s}
 
 
 #: the phases ``--only`` can run by themselves: (x, y, directory, card); "reload"

@@ -21,11 +21,20 @@ calls. This module builds the cross-module picture:
   and which names it binds to a captured graph's static inputs and
   outputs;
 - **transitive facts** over the intra-project call graph: the host-read
-  taint and the device-work taint (a function that reaches one through
-  its callees), and whether a function
+  taint, the device-work taint and the synchronous-I/O taint (a function
+  that reaches one through its callees), the parameters whose value
+  reaches ``manual_seed`` (directly or handed down), and whether a function
   runs inside a capture (it is called, transitively, from a
   ``with torch.cuda.graph(...)`` body or from between ``capture_begin``
-  and ``capture_end``).
+  and ``capture_end``);
+- **replayers**: functions that ``replay()`` a captured graph and return
+  its static output (or an alias of it) with no copy between, where the
+  output outlives the call: an attribute the module binds inside a capture
+  (``cap.y``, ``self.y``) read off the object whose graph was replayed, or
+  a module global bound inside a capture. A caller that holds one call's
+  result across a second call reads the second call's result. Module-level
+  names bound to a replayer, or to a ``functools.partial`` over one, are
+  recorded per module.
 
 Phase 2 (the rules) receives the index as ``mod.project`` on every
 :class:`~.engine.SourceModule`. Everything here is stdlib-only and purely
@@ -37,6 +46,7 @@ from __future__ import annotations
 
 import ast
 import dataclasses
+import functools
 import os
 from typing import Dict, FrozenSet, List, Optional, Set, Tuple
 
@@ -153,6 +163,133 @@ def graphed_callable_names(body, resolve) -> List[Tuple[str, int]]:
     return out
 
 
+#: ``open`` modes that write
+_WRITE_MODES = set("wax+")
+
+
+def is_sync_io(call: ast.Call, resolve) -> bool:
+    """A call in :data:`_common.SYNC_IO_CALLS`, an ``open`` only when its
+    literal mode writes (``open(p)`` and ``open(p, "rb")`` read)."""
+    resolved = resolve(call.func)
+    if resolved not in _common.SYNC_IO_CALLS:
+        return False
+    if resolved not in ("open", "io.open"):
+        return True
+    mode = call.args[1] if len(call.args) > 1 else next(
+        (kw.value for kw in call.keywords if kw.arg == "mode"), None)
+    return (isinstance(mode, ast.Constant) and isinstance(mode.value, str)
+            and bool(_WRITE_MODES & set(mode.value)))
+
+
+def seed_argument(call: ast.Call, resolve) -> Optional[ast.AST]:
+    """The seed expression of a seeding call (``torch.manual_seed(E)``,
+    ``g.manual_seed(E)``, ``torch.Generator().manual_seed(E)``), else
+    None."""
+    if not call.args:
+        return None
+    if resolve(call.func) in _common.GLOBAL_SEED_CALLS or (
+            isinstance(call.func, ast.Attribute)
+            and call.func.attr in _common.SEED_METHODS):
+        return call.args[0]
+    return None
+
+
+def seed_reaches(expr: ast.AST, name: str) -> bool:
+    """Whether ``name``'s value is the seed ``expr`` gives: the name
+    itself, ``int(name)``, or a branch of a conditional that is."""
+    if isinstance(expr, ast.Name):
+        return expr.id == name
+    if (isinstance(expr, ast.Call) and isinstance(expr.func, ast.Name)
+            and expr.func.id == "int" and len(expr.args) == 1):
+        return seed_reaches(expr.args[0], name)
+    if isinstance(expr, ast.IfExp):
+        return seed_reaches(expr.body, name) or seed_reaches(expr.orelse, name)
+    return False
+
+
+#: tensor methods whose result shares storage with the receiver
+VIEW_METHODS = {
+    "view", "view_as", "reshape", "detach", "narrow", "squeeze",
+    "unsqueeze", "t", "transpose", "permute", "expand", "expand_as",
+    "flatten", "unflatten", "select", "as_strided", "contiguous",
+}
+
+
+def alias_root(value: ast.AST) -> Optional[ast.AST]:
+    """The Name or Attribute an expression is a view of (``y``, ``y[:n]``,
+    ``cap.y.view(...)``), else None."""
+    node = value
+    while True:
+        if isinstance(node, (ast.Name, ast.Attribute)):
+            return node
+        if isinstance(node, ast.Subscript):
+            node = node.value
+        elif (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+              and node.func.attr in VIEW_METHODS):
+            node = node.func.value
+        else:
+            return None
+
+
+def _captured_bindings(mod) -> Tuple[Set[str], Set[str]]:
+    """(attribute names, ``global`` names) bound inside a capture region
+    of any function of ``mod``."""
+    attrs: Set[str] = set()
+    names: Set[str] = set()
+    for fn in ast.walk(mod.tree):
+        if not isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        declared = {n for g in ast.walk(fn) if isinstance(g, ast.Global) for n in g.names}
+        for _, nodes, _ in capture_regions(fn.body, mod.resolve):
+            for n in nodes:
+                if not isinstance(n, (ast.Assign, ast.AugAssign, ast.AnnAssign)):
+                    continue
+                targets = n.targets if isinstance(n, ast.Assign) else [n.target]
+                for t in targets:
+                    for sub in ast.walk(t):
+                        if isinstance(sub, ast.Attribute) and isinstance(sub.ctx, ast.Store):
+                            attrs.add(sub.attr)
+                names |= _common.assignment_targets(n) & declared
+    return attrs, names
+
+
+def _replayer_facts(fn, params, info) -> Tuple[bool, Tuple[int, ...]]:
+    """``(replayer, buffer param positions)`` of one function: it replays a
+    graph (``X.replay()``) and then returns, with no copy between, an alias
+    of a static output that outlives the call — ``B.attr`` where the module
+    binds ``attr`` inside a capture and ``B`` is the base of a replayed
+    graph's expression, or a module global bound inside a capture and not
+    rebound here. The buffer params are those that ``B`` names."""
+    nodes = list(_common.walk_excluding_defs(fn.body))
+    replays = [n for n in nodes if isinstance(n, ast.Call)
+               and isinstance(n.func, ast.Attribute) and n.func.attr == "replay"
+               and not n.args]
+    if not replays:
+        return False, ()
+    first = min(n.lineno for n in replays)
+    bases = {_common.base_name(n.func.value) for n in replays}
+    local = _common.bound_names(ast.Module(body=fn.body, type_ignores=[]))
+    local |= set(params)
+    globals_here = {n for g in nodes if isinstance(g, ast.Global) for n in g.names}
+    static_globals = info.captured_globals - (local - globals_here)
+    buffers: Set[int] = set()
+    found = False
+    for ret in nodes:
+        if not (isinstance(ret, ast.Return) and ret.value is not None
+                and ret.lineno > first):
+            continue
+        root = alias_root(ret.value)
+        if isinstance(root, ast.Attribute) and root.attr in info.captured_attrs:
+            base = _common.base_name(root.value)
+            if base in bases:
+                found = True
+                if base in params:
+                    buffers.add(params.index(base))
+        elif isinstance(root, ast.Name) and root.id in static_globals:
+            found = True
+    return found, tuple(sorted(buffers))
+
+
 @dataclasses.dataclass
 class FunctionSummary:
     """What phase 2 may assume about one function without re-reading it."""
@@ -173,6 +310,16 @@ class FunctionSummary:
     static_names: Dict[str, Tuple[FrozenSet[str], FrozenSet[str]]] = \
         dataclasses.field(default_factory=dict)
     has_spawn: bool = False          # DIRECT subprocess.Popen/run/os.fork...
+    has_sync_io: bool = False        # DIRECT open-for-writing/fsync/socket...
+    #: returns a captured graph's static output after replaying it
+    replayer: bool = False
+    #: positions of the parameters that carry the replayed graph's buffers
+    #: (the object whose graph is replayed and whose output is returned)
+    buffer_params: Tuple[int, ...] = ()
+    #: params whose value reaches ``manual_seed`` in this function's own body
+    seed_params: Tuple[str, ...] = ()
+    #: (callee, ((position or keyword, param), ...)): params handed on whole
+    param_handoffs: Tuple[Tuple[str, Tuple[Tuple[object, str], ...]], ...] = ()
     #: called, transitively, from a capture region (filled by the index)
     in_capture: bool = False
     #: one capture region it is reached from, "path:line" (for messages)
@@ -182,6 +329,13 @@ class FunctionSummary:
     @property
     def fq(self) -> str:
         return f"{self.module}.{self.qualname}"
+
+    def param_at(self, key) -> Optional[str]:
+        """The parameter a call argument lands on: a position of
+        :func:`_common.call_args_with_keywords`, or a keyword's name."""
+        if isinstance(key, int):
+            return self.params[key] if key < len(self.params) else None
+        return key
 
 
 @dataclasses.dataclass
@@ -194,6 +348,12 @@ class ModuleInfo:
     is_package: bool = False
     functions: Dict[str, FunctionSummary] = dataclasses.field(default_factory=dict)
     imports: Dict[str, str] = dataclasses.field(default_factory=dict)  # absolutized
+    #: attribute names and ``global`` names bound inside a capture region
+    captured_attrs: Set[str] = dataclasses.field(default_factory=set)
+    captured_globals: Set[str] = dataclasses.field(default_factory=set)
+    #: module-level name -> the replayer it is bound to (directly or
+    #: through ``functools.partial``)
+    replayer_aliases: Dict[str, str] = dataclasses.field(default_factory=dict)
 
     @property
     def package(self) -> str:
@@ -212,12 +372,17 @@ class ProjectIndex:
         self._host_read_cache: Dict[str, bool] = {}
         self._device_cache: Dict[str, bool] = {}
         self._spawn_taint_cache: Dict[str, bool] = {}
+        self._io_taint_cache: Dict[str, bool] = {}
+        self._seed_cache: Dict[str, FrozenSet[str]] = {}
         self._concurrency = None
         self._lifecycle = None
         for mod in srcmods:
             self._index_module(mod)
-        # second pass: what runs inside a capture needs every summary
+        # second pass: what runs inside a capture, and the module-level
+        # replayer aliases, need every summary
         self._mark_captured()
+        for info in self.modules.values():
+            self._collect_replayer_aliases(info)
 
     @property
     def concurrency(self):
@@ -254,6 +419,7 @@ class ProjectIndex:
             local: self._absolutize(info, dotted)
             for local, dotted in mod.imports.items()
         }
+        info.captured_attrs, info.captured_globals = _captured_bindings(mod)
         for node in mod.tree.body:
             if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
                 self._summarize(info, mod, node, qualprefix="", is_method=False)
@@ -288,7 +454,9 @@ class ProjectIndex:
             args = args[1:]
         params = [p.arg for p in args]
         calls: List[str] = []
-        has_read = has_device = has_spawn = False
+        has_read = has_device = has_spawn = has_io = False
+        seeded: Set[str] = set()
+        handoffs: List[Tuple[str, Tuple[Tuple[object, str], ...]]] = []
         for n in ast.walk(fn):
             if isinstance(n, ast.BinOp) and isinstance(n.op, ast.MatMult):
                 has_device = True
@@ -301,9 +469,19 @@ class ProjectIndex:
                 has_device = True
             if resolved in _common.SPAWN_CALLS:
                 has_spawn = True
+            if is_sync_io(n, mod.resolve):
+                has_io = True
+            seed = seed_argument(n, mod.resolve)
+            if seed is not None:
+                seeded |= {p for p in params if seed_reaches(seed, p)}
             if resolved is None:
                 continue
-            calls.append(self._canonical_call(info, resolved))
+            canonical = self._canonical_call(info, resolved)
+            calls.append(canonical)
+            passed = tuple((k, v.id) for k, v in _common.call_args_with_keywords(n)
+                           if isinstance(v, ast.Name) and v.id in params)
+            if passed:
+                handoffs.append((canonical, passed))
         capture_calls: List[Tuple[str, int]] = []
         static: Dict[str, Tuple[FrozenSet[str], FrozenSet[str]]] = {}
         for anchor, nodes, graph in capture_regions(fn.body, mod.resolve):
@@ -326,6 +504,7 @@ class ProjectIndex:
             static[graph] = (prev_in | frozenset(ins), prev_out | frozenset(outs))
         for name, line in graphed_callable_names(fn.body, mod.resolve):
             capture_calls.append((self._canonical_call(info, name), line))
+        replayer, buffers = _replayer_facts(fn, params, info)
         summary = FunctionSummary(
             module=info.name,
             qualname=qualprefix + fn.name,
@@ -342,6 +521,11 @@ class ProjectIndex:
             launches_device=has_device,
             static_names=static,
             has_spawn=has_spawn,
+            has_sync_io=has_io,
+            replayer=replayer,
+            buffer_params=buffers,
+            seed_params=tuple(p for p in params if p in seeded),
+            param_handoffs=tuple(handoffs),
             node=fn,
         )
         info.functions[summary.qualname] = summary
@@ -441,6 +625,59 @@ class ProjectIndex:
                         f"{re_target}.{rest}" if rest else re_target)
         return None
 
+    def _collect_replayer_aliases(self, info: ModuleInfo) -> None:
+        """Module-level ``name = replayer`` and ``name = functools.partial(
+        replayer, ...)`` bindings, in source order (an alias may name an
+        earlier one)."""
+        mod = info.srcmod
+        for stmt in mod.tree.body:
+            if not (isinstance(stmt, ast.Assign) and len(stmt.targets) == 1
+                    and isinstance(stmt.targets[0], ast.Name)):
+                continue
+            value = stmt.value
+            if (isinstance(value, ast.Call) and value.args
+                    and mod.resolve(value.func) == "functools.partial"):
+                value = value.args[0]
+            if not isinstance(value, (ast.Name, ast.Attribute)):
+                continue
+            target = self.replayer(mod, value)
+            if target is not None:
+                info.replayer_aliases[stmt.targets[0].id] = target.fq
+
+    @functools.cached_property
+    def replayer_names(self) -> FrozenSet[str]:
+        """The last names of every replayer and replayer alias (a module
+        that mentions none of them calls none)."""
+        names = {s.name for info in self.modules.values()
+                 for s in info.functions.values() if s.replayer}
+        names |= {a for info in self.modules.values() for a in info.replayer_aliases}
+        return frozenset(names)
+
+    @functools.cached_property
+    def seeding_names(self) -> FrozenSet[str]:
+        """The last names of every function with a seeding parameter."""
+        return frozenset(s.name for info in self.modules.values()
+                         for s in info.functions.values() if self.seeding_params(s))
+
+    def replayer(self, mod, node) -> Optional[FunctionSummary]:
+        """The replayer a callee expression of ``mod`` names: a project
+        function the index marks as one, or a module-level alias of one
+        (``run = functools.partial(replay, cap)``) bound in ``mod`` or
+        imported from the module that binds it."""
+        summary = self.resolve_function(mod, node)
+        if summary is not None:
+            return summary if summary.replayer else None
+        info = self.by_path.get(mod.path)
+        dotted = _common.dotted_name(node)
+        if info is None or dotted is None or "." in dotted:
+            return None
+        fq = info.replayer_aliases.get(dotted)
+        if fq is None:
+            owner, _, symbol = info.imports.get(dotted, "").rpartition(".")
+            source = self.modules.get(owner)
+            fq = source.replayer_aliases.get(symbol) if source is not None else None
+        return self.lookup(fq) if fq else None
+
     @staticmethod
     def _local_resolve(mod, dotted: str) -> str:
         first, _, rest = dotted.partition(".")
@@ -472,6 +709,40 @@ class ProjectIndex:
         loop calls is where the ``Popen`` actually lives."""
         return self._tainted(summary.fq, frozenset(),
                              "has_spawn", self._spawn_taint_cache)
+
+    def io_tainted(self, summary: FunctionSummary) -> bool:
+        """Same closure: True when ``summary`` does synchronous host I/O
+        (:func:`is_sync_io`: a file opened for writing, an fsync, a
+        replace, a socket, a URL, a copy) itself or through project calls.
+        JG020's input: the write sits in a logging helper two calls below
+        the timed loop."""
+        return self._tainted(summary.fq, frozenset(),
+                             "has_sync_io", self._io_taint_cache)
+
+    def seeding_params(self, summary: FunctionSummary,
+                       seen: frozenset = frozenset()) -> FrozenSet[str]:
+        """The parameters of ``summary`` whose value reaches
+        ``manual_seed``: in its own body (the seed expression is the
+        parameter, ``int(param)``, or a branch of a conditional that is),
+        or handed whole to a project function at one of its seeding
+        parameters. Unresolvable callees add nothing."""
+        if summary.fq in self._seed_cache:
+            return self._seed_cache[summary.fq]
+        if summary.fq in seen:
+            return frozenset(summary.seed_params)
+        seen = seen | {summary.fq}
+        out = set(summary.seed_params)
+        for callee, passed in summary.param_handoffs:
+            target = self._resolve_callee(callee)
+            if target is None:
+                continue
+            inner = self.seeding_params(target, seen)
+            if not inner:
+                continue
+            out |= {param for key, param in passed if target.param_at(key) in inner}
+        result = frozenset(out)
+        self._seed_cache[summary.fq] = result
+        return result
 
     def _tainted(self, fq: str, seen: frozenset, mark: str,
                  cache: Dict[str, bool]) -> bool:

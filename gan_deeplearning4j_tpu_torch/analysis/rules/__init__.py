@@ -10,11 +10,15 @@ Two kinds of rule live here, under the JAX analyzer's codes (the catalogue,
 
 - the 14 rules that are not tied to JAX, copied with their codes and
   messages (JG003, JG016, JG017, JG021-JG029, JG031, JG032);
-- the torch counterparts of ten JAX-idiom rules, each under the code of
-  the JAX rule it stands in for (JG001, JG002, JG004-JG009, JG015, JG030).
+- the torch counterparts of the 18 JAX-idiom rules, each under the code
+  of the JAX rule it stands in for (JG001, JG002, JG004-JG015, JG018-JG020,
+  JG030).
+
+So the registry holds the JAX registry's 32 codes.
 
 New rules: add a module here, register the instance in RULES, and give it
-true-positive/true-negative fixtures in ``tests/test_torch_analysis.py`` —
+true-positive/true-negative fixtures in ``tests/test_torch_analysis.py`` or
+``tests/test_torch_analysis_flow.py`` —
 a rule without a fixture proving it fires on the bug it was derived from
 is not a rule, it is a hope.
 """
@@ -73,6 +77,18 @@ from gan_deeplearning4j_tpu_torch.analysis.rules.ladder_literal import (
 from gan_deeplearning4j_tpu_torch.analysis.rules.double_buffer import (
     DoubleBufferMisuse,
 )
+from gan_deeplearning4j_tpu_torch.analysis.rules.replay_flow import StaticOutputAcrossCalls
+from gan_deeplearning4j_tpu_torch.analysis.rules.seed_flow import SeedHandedToTwoHelpers
+from gan_deeplearning4j_tpu_torch.analysis.rules.prefetch_transform import (
+    HostSyncInPrefetchTransform,
+)
+from gan_deeplearning4j_tpu_torch.analysis.rules.replay_io import SyncIoOnTimedReplayPath
+from gan_deeplearning4j_tpu_torch.analysis.rules.collective_group import CollectiveOffTheMesh
+from gan_deeplearning4j_tpu_torch.analysis.rules.placement import StatePlacementMismatch
+from gan_deeplearning4j_tpu_torch.analysis.rules.vmap_dims import VmapInDimsMismatch
+from gan_deeplearning4j_tpu_torch.analysis.rules.inplace_collective import (
+    InPlaceCollectiveReadAsLocal,
+)
 
 RULES = [
     GeneratorReuse(),
@@ -99,6 +115,14 @@ RULES = [
     QuantPrecisionCastMismatch(),
     HardcodedLadderLiteral(),
     DoubleBufferMisuse(),
+    StaticOutputAcrossCalls(),
+    SeedHandedToTwoHelpers(),
+    HostSyncInPrefetchTransform(),
+    SyncIoOnTimedReplayPath(),
+    CollectiveOffTheMesh(),
+    StatePlacementMismatch(),
+    VmapInDimsMismatch(),
+    InPlaceCollectiveReadAsLocal(),
 ]
 
 RULES_BY_CODE = {r.code: r for r in RULES}

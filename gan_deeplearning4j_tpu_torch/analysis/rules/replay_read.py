@@ -23,30 +23,14 @@ from __future__ import annotations
 import ast
 
 from gan_deeplearning4j_tpu_torch.analysis import _common
-from gan_deeplearning4j_tpu_torch.analysis.project import capture_regions
-
-#: tensor methods whose result shares storage with the receiver
-_VIEW_METHODS = {
-    "view", "view_as", "reshape", "detach", "narrow", "squeeze",
-    "unsqueeze", "t", "transpose", "permute", "expand", "expand_as",
-    "flatten", "unflatten", "select", "as_strided", "contiguous",
-}
+from gan_deeplearning4j_tpu_torch.analysis.project import alias_root, capture_regions
 
 
 def _alias_source(value: ast.AST):
     """The name an expression aliases (``y``, ``y[:n]``,
     ``y.view(...)``), else None."""
-    node = value
-    while True:
-        if isinstance(node, ast.Name):
-            return node.id
-        if isinstance(node, ast.Subscript):
-            node = node.value
-        elif (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
-              and node.func.attr in _VIEW_METHODS):
-            node = node.func.value
-        else:
-            return None
+    root = alias_root(value)
+    return root.id if isinstance(root, ast.Name) else None
 
 
 class StaticBufferReadAfterReplay:

@@ -57,6 +57,11 @@ Adaptations, against the JAX script:
   probe, so only the gate's finiteness check decides. ``canary_probes``
   in the payload records what the gate saw for each generation it decided
   (its FID and accuracy and the incumbent's, from ``/healthz``).
+- The forced poll after the poison asks again while it answers 409, as
+  the poll before it does: ``/healthz`` counts the rejection before the
+  rejecting cycle ends, and a periodic cycle may be running (the JAX
+  script asks once, so a poll landing in either fails its
+  ``rejection_surfaced``).
 - Results go to ``--output``; ``--record TAG`` writes
   ``BENCH_reload_torch_<TAG>.json``, never the JAX drill's file. The
   payload also carries each swap's publish→served seconds and the
@@ -475,9 +480,16 @@ def run_reload_drill(workload: dict, workdir: str, *, total: int,
                 time.sleep(0.5)
         canary_s = time.monotonic() - t_poison
         # with the poison quarantined, a forced blocking poll finds
-        # nothing newer and answers 200 — the admin route's happy path
+        # nothing newer and answers 200 — the admin route's happy path;
+        # the rejecting cycle may still be winding down when healthz
+        # first counts the rejection, and a periodic cycle may be running:
+        # 409 is then the correct busy answer, so ask again
         status, body = http_json(
             "POST", f"{base}/admin/reload?block=1", {}, timeout=120.0)
+        while status == 409 and time.monotonic() < deadline:
+            time.sleep(0.5)
+            status, body = http_json(
+                "POST", f"{base}/admin/reload?block=1", {}, timeout=120.0)
         _, after = http_json("GET", f"{base}/healthz", timeout=5.0)
         note_canary(after)
         from gan_deeplearning4j_tpu_torch.resilience import CheckpointStore

@@ -74,6 +74,7 @@ captures by key, and a second capture of one key raises.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -81,7 +82,12 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from gan_deeplearning4j_tpu_torch.parallel.trainer import TrainState
-from gan_deeplearning4j_tpu_torch.runtime.capture import CAPTURE_ERROR_MODE, CAPTURE_LOCK, capture_guard
+from gan_deeplearning4j_tpu_torch.runtime.capture import (
+    CAPTURE_ERROR_MODE,
+    CAPTURE_LOCK,
+    capture_guard,
+    capturing,
+)
 
 Body = Callable[[Dict, Dict[str, torch.Tensor]], Tuple[Dict, torch.Tensor]]
 
@@ -341,23 +347,31 @@ class CapturedIterations:
         k_total = next(iter(window.values())).shape[0]
         losses = torch.empty((k_total, 3), dtype=torch.float32, device=self.device)
         entry = None
-        for k in range(k_total):
-            slots = {n: t[k] for n, t in window.items()}
-            if entry is None or entry.target is not entry.source:
-                entry = self._entry(structure, leaves, slots)
-                self.copies_in += entry.source.load(leaves)
-            with torch.no_grad():
-                torch._foreach_copy_(list(entry.inputs.values()), [slots[n] for n in entry.inputs])
-            if not self.captured:
-                self._run_plain(entry, steps)
-            else:
-                if entry.graph is None:
-                    self._capture(entry, steps)
-                entry.graph.replay()
-            self.runs += 1
-            entry.runs += 1
-            with torch.no_grad():
-                losses[k].copy_(entry.loss)
-            leaves, structure = entry.target.tensors(), entry.target.structure
-            steps = [s + d for s, d in zip(steps, entry.deltas)]
+        # the window's first capture enters one guard that stays open while
+        # captures follow one another (init, then the steady state), so they
+        # share one collection; a step whose entry is already captured closes it
+        with contextlib.ExitStack() as guard:
+            for k in range(k_total):
+                slots = {n: t[k] for n, t in window.items()}
+                if entry is None or entry.target is not entry.source:
+                    entry = self._entry(structure, leaves, slots)
+                    self.copies_in += entry.source.load(leaves)
+                with torch.no_grad():
+                    torch._foreach_copy_(list(entry.inputs.values()), [slots[n] for n in entry.inputs])
+                if not self.captured:
+                    self._run_plain(entry, steps)
+                else:
+                    if entry.graph is None:
+                        if not capturing():
+                            guard.enter_context(capture_guard())
+                        self._capture(entry, steps)
+                    else:
+                        guard.close()
+                    entry.graph.replay()
+                self.runs += 1
+                entry.runs += 1
+                with torch.no_grad():
+                    losses[k].copy_(entry.loss)
+                leaves, structure = entry.target.tensors(), entry.target.structure
+                steps = [s + d for s, d in zip(steps, entry.deltas)]
         return unflatten_trees(structure, iter(leaves), iter(steps)), losses

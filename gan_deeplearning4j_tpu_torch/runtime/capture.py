@@ -38,10 +38,13 @@ _guarded = threading.local()
 @contextlib.contextmanager
 def capture_guard():
     """Hold :data:`CAPTURE_LOCK` with Python's cyclic collector run first
-    and held off until the block ends."""
+    and held off until the block ends. Nested on one thread, only the
+    outermost entry collects and turns the collector back on."""
     with CAPTURE_LOCK:
-        gc.collect()
-        collecting = gc.isenabled()
+        outermost = not capturing()
+        if outermost:
+            gc.collect()
+        collecting = outermost and gc.isenabled()
         gc.disable()
         _guarded.depth = getattr(_guarded, "depth", 0) + 1
         try:

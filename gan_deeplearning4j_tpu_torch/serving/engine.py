@@ -748,11 +748,14 @@ class ServingEngine:
 
     def _warm_all(self) -> None:
         try:
-            for kind in self._kinds:
-                for r in range(len(self._replicas)):
-                    for b in self.buckets:
-                        if (kind, b, r) not in self._ran:
-                            self._warm_one(kind, b, r)
+            # on the card, one guard around every capture: one collection
+            # per warmup, not one per (kind, bucket, replica)
+            with capture_guard() if self._cuda else contextlib.nullcontext():
+                for kind in self._kinds:
+                    for r in range(len(self._replicas)):
+                        for b in self.buckets:
+                            if (kind, b, r) not in self._ran:
+                                self._warm_one(kind, b, r)
             self._warm_error = None
         except BaseException as exc:  # surfaced by wait_warm/healthz
             self._warm_error = exc

@@ -6,10 +6,11 @@
   temporary trees (suppressions, the baseline's migration, staleness and
   pruning, JSON and SARIF, ``--changed-only``, ``--fix``, ``--fix-suppress``,
   the parse cache): the same exit codes and output, the tool's name apart;
-- the ten torch counterparts: a true positive and a true negative each,
-  showing the hazard in torch code; a coverage test holds every code of the
-  registry to both (the 14 shared rules' fixtures are the JAX package's,
-  run by ``tests/test_torch_analysis_parity.py``);
+- ten of the 18 torch counterparts: a true positive and a true negative
+  each, showing the hazard in torch code (the other eight, the flow rules,
+  are in ``tests/test_torch_analysis_flow.py``); a coverage test holds
+  every code of the registry to both (the 14 shared rules' fixtures are the
+  JAX package's, run by ``tests/test_torch_analysis_parity.py``);
 - the clean tree: no active finding and no suppression over the port,
   ``chip_smoke.py`` and the analyzer's own package;
 - ``analysis/lint_gate.sh``.
@@ -40,6 +41,7 @@ from gan_deeplearning4j_tpu_torch.analysis import (
 from gan_deeplearning4j_tpu_torch.analysis import fix as fix_mod
 from gan_deeplearning4j_tpu_torch.analysis.__main__ import main as torch_main
 from gan_deeplearning4j_tpu_torch.analysis.rules import RULES_BY_CODE, SHARED_CODES
+from test_torch_analysis_flow import FLOW_COUNTERPARTS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(REPO, "gan_deeplearning4j_tpu_torch", "analysis")
@@ -111,7 +113,8 @@ class TestHygiene:
         assert offenders == []
 
     def test_registry_is_fourteen_shared_and_ten_counterparts(self):
-        assert len(SHARED_CODES) == 14
+        # and the eight flow counterparts: 18 in all
+        assert len(SHARED_CODES) == 14 and len(COUNTERPARTS) == 18
         assert set(SHARED_CODES) <= set(RULES_BY_CODE)
         assert sorted(set(RULES_BY_CODE) - set(SHARED_CODES)) == sorted(COUNTERPARTS)
 
@@ -288,11 +291,17 @@ class TestEngineParity:
         assert by[("torch", 1)] == by[("jax", 1)] and by[("torch", 1)][2] == ("2", "0")
 
     def test_a_code_only_the_jax_registry_has_is_unknown_here(self):
-        # JG010 (the static-output flow) is still to come in the port
-        r = run("def f(x):\n    return x  # torchlint: disable=JG010\n")
-        assert any("unknown rule code 'JG010'" in w for w in r.warnings)
-        assert not any("JG005" in w for w in run(
-            "def f(x):\n    return x  # torchlint: disable=JG005\n").warnings)
+        # the registries hold the same codes: a code neither has is unknown
+        # to both engines, in the same words but the tool's name; a code
+        # both have is known to both
+        from gan_deeplearning4j_tpu.analysis import analyze_sources as jax_sources
+
+        src = "def f(x):\n    return x  # {tool}: disable={code}\n"
+        for code, known in (("JG099", False), ("JG010", True), ("JG005", True)):
+            port = run(src.format(tool="torchlint", code=code)).warnings
+            jax = jax_sources({"fx/mod.py": src.format(tool="jaxlint", code=code)}).warnings
+            assert [w.replace("jaxlint", "torchlint") for w in jax] == port
+            assert any(f"unknown rule code '{code}'" in w for w in port) is not known
 
     def test_cache_variable_is_torchlints_own(self, monkeypatch, tmp_path, capsys):
         (tmp_path / "prod.py").write_text(DIRTY)
@@ -997,15 +1006,20 @@ COUNTERPARTS = {
     "JG006": TestStaticBufferReadAfterReplay, "JG007": TestDiscardedOutOfPlace,
     "JG008": TestWeakScalarDrift, "JG009": TestHostReadInTimedRegion,
     "JG015": TestTelemetryUnfencedTiming, "JG030": TestQuantPrecisionCastMismatch,
+    **FLOW_COUNTERPARTS,
 }
 
 
 def test_rules_all_have_fixture_coverage():
     # every counterpart has a true positive asserting it fires and a true
-    # negative; the shared codes' fixtures are the JAX package's, run in
-    # test_torch_analysis_parity.py for each code
-    with open(__file__, encoding="utf-8") as fh:
-        here = fh.read()
+    # negative, here or in test_torch_analysis_flow.py; the shared codes'
+    # fixtures are the JAX package's, run in test_torch_analysis_parity.py
+    # for each code
+    here = ""
+    for name in (__file__, os.path.join(os.path.dirname(__file__), "test_torch_analysis_flow.py")):
+        with open(name, encoding="utf-8") as fh:
+            here += fh.read()
+    assert len(RULES) == 32
     for rule in RULES:
         if rule.code in SHARED_CODES:
             continue

@@ -298,3 +298,54 @@ def test_every_name_initialises_a_registered_family(name):
     finally:
         pt_registry.unregister(f"init_{name}")
         jax_registry.unregister(f"init_{name}")
+
+
+# -- the capture guard: one collection per outermost entry -------------------------
+
+
+def test_nested_capture_guards_collect_once_and_hold_the_collector_off(monkeypatch):
+    import gc
+    import threading
+
+    from gan_deeplearning4j_tpu_torch.runtime import capture
+
+    collections = []
+    monkeypatch.setattr(capture.gc, "collect", lambda *a: collections.append(a) or 0)
+    assert gc.isenabled()
+    seen = []
+    with capture.capture_guard():
+        seen.append((gc.isenabled(), capture.capturing()))
+        for _ in range(3):  # a warmup's loop of captures
+            with capture.capture_guard():
+                seen.append((gc.isenabled(), capture.capturing()))
+                with capture.capture_guard():
+                    seen.append((gc.isenabled(), capture.capturing()))
+            seen.append((gc.isenabled(), capture.capturing()))
+        # the lock is held across the loop: another thread cannot take it
+        got = []
+        other = threading.Thread(target=lambda: got.append(capture.CAPTURE_LOCK.acquire(blocking=False)))
+        other.start()
+        other.join()
+        assert got == [False]
+    assert len(collections) == 1
+    assert seen == [(False, True)] * 10
+    assert gc.isenabled() and not capture.capturing()
+    with capture.capture_guard():  # a second outermost entry collects again
+        assert not gc.isenabled()
+    assert len(collections) == 2 and gc.isenabled()
+
+
+def test_capture_guard_leaves_a_disabled_collector_disabled(monkeypatch):
+    import gc
+
+    from gan_deeplearning4j_tpu_torch.runtime import capture
+
+    monkeypatch.setattr(capture.gc, "collect", lambda *a: 0)
+    gc.disable()
+    try:
+        with capture.capture_guard():
+            with capture.capture_guard():
+                assert not gc.isenabled()
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
