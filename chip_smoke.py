@@ -253,8 +253,8 @@ fleet:
 
 y. every worker serves the full-width MNIST DCGAN bundle of (x)'s workload
    (``ExperimentConfig``'s defaults, synthetic rows) on the card: (y1) the
-   reload drill (``deploy/drill.py``) through processes at its smoke depth
-   (24 trainer steps, serve every 2), its invariants, publish→served and
+   reload drill (``deploy/drill.py``) through processes (12 trainer steps,
+   serve every 2), its invariants, publish→served and
    canary seconds; (y2) the fleet fault drill (``fleet/drill.py``): 2
    workers, 12 trainer steps, serving once — SIGKILL, SIGSTOP,
    rolling upgrades through the sidecar canary, poison, trace propagation
@@ -318,6 +318,29 @@ aa. the static analyzer (``gan_deeplearning4j_tpu_torch/analysis``): (aa1) it
    The pair's rules, and no other, fire on each true positive, and no rule
    fires on a true negative; (aa3) takes under 15 s. ``--only analysis`` runs (aa)
    alone.
+
+Then the measurement modules:
+
+ab. ``serving/bench.py`` and ``harness/profile.py`` on ``cuda:0`` at the
+   MNIST DCGAN's full width: (ab1) the serving bench at the JAX script's
+   defaults (200 requests from 8 closed-loop threads, ladder 1, 8, 32,
+   sizes 1-32; an overload phase of 64 requests from 16 threads on a
+   queue of 4 with 0.5 s deadlines) and 3 paired legacy rounds, then the
+   learned-ladder replay of a seeded heavy-tail trace of 400 sizes on the
+   baseline ladder 1, 8, 32, 128: its six invariants hold (nothing lost in
+   either phase, captures bounded, none at serve time, the learned ladder
+   within budget and no more waste); rows/s, the in-process p50 and p99
+   per kind beside (http)'s concurrent p50 of this call and their
+   difference, stage times, occupancy, sheds, the paired ratio, the
+   ladders' waste, cold and re-warm warmup; (ab2) the DCGAN-MNIST
+   iteration at batch 64, fp32 and bf16, 50 traced captured iterations
+   each (the top kernels with their shares of an iteration), and the
+   batch sweep at 64 and 256; (ab3) the WGAN-GP round at the bench's
+   shapes: FLOPs by ``FlopCounterMode`` (the critic forward equal to the
+   analytic count, the round counting every critic step), 4 chunks of a
+   32-round window, and ``dgrad2d``'s share of a traced round beside
+   PERF.md section 5's. ``--only measurement`` runs (ab) alone (with
+   (http) on a fresh bundle first).
 
 Every number is printed beside the card's name and power limit. The
 ``kernels`` line lists ``quant_dense`` (the JAX package has no Pallas
@@ -3850,10 +3873,11 @@ def _phase_resilience(x, y, directory: str, card: str) -> dict:
 
 #: the platform every (y) worker, probe and trainer must report
 FLEET_PLATFORM = "gpu"
-#: (y1) the reload drill at its smoke depth (its full shape, 60 steps serving
-#: every 3, ran 103.5 s on the card, PERF.md §4): steps, serve-publish and
-#: checkpoint cadences
-Y1_STEPS, Y1_SERVE_EVERY, Y1_PUBLISH_EVERY = 24, 2, 6
+#: (y1) the reload drill cut below its smoke depth (its full shape, 60 steps
+#: serving every 3, ran 103.5 s on the card, PERF.md §4; 24 steps serving every
+#: 2 ran 35.9 s): steps, serve-publish and checkpoint cadences. Six serving
+#: publishes still give the server two swaps or more
+Y1_STEPS, Y1_SERVE_EVERY, Y1_PUBLISH_EVERY = 12, 2, 6
 #: (y2) the fault drill cut to two workers and one serving generation, so one
 #: canary and one roll (3 workers, 24 steps serving every 6 took 166-179 s on
 #: the card, and the whole script 1,234 s on a slow host): workers, trainer
@@ -4817,6 +4841,138 @@ def _phase_analysis(card: str) -> dict:
     return {"tree": tree, "pairs": pairs, "seconds": seconds, "aa3_seconds": aa3_s}
 
 
+# -- (ab) measurement: the serving bench and the profiles ---------------------------
+
+#: (ab1) the serving bench at the JAX script's defaults (200 requests, 8 threads,
+#: ladder 1, 8, 32, sizes 1, 2, 5, 8, 13, 32; overload 64 requests, 16 threads,
+#: queue 4, 0.5 s), with 3 paired legacy rounds
+AB1_ARGS = ["--compare", "3"]
+#: (ab1) the replay's trace: sizes from ``default_rng(17)``'s Zipf(1.6) capped at
+#: 128, on the baseline ladder 1, 8, 32, 128 (the bench's default)
+AB1_TRACE_SIZES = 400
+#: (ab2) config 1, fp32 and bf16: 50 traced iterations each, the sweep at 64 and 256
+#: (windows of 10 and 40 calls after a settling 10)
+AB2_ARGS = ["iteration", "--iters", "50", "--sweep", "64,256", "--sweep-iters", "40"]
+#: (ab3) the WGAN-GP round at the bench's shapes, 4 chunks of a 32-round window
+AB3_ARGS = ["wgan", "--chunks", "4"]
+#: PERF.md section 5: dgrad2d_alg1_1's ms of a captured fp32 ``wgan_gp`` round (b320)
+AB3_SECTION5_MS = (16.25, 48.26)
+
+
+def _quiet(fn, *args):
+    """``fn(*args)`` with its standard output kept off this script's: the
+    modules print their own lines, which carry no card name."""
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args)
+
+
+def _phase_measurement(x, y, directory: str, card: str, http=None) -> dict:
+    """(ab) The port's measurement modules on the card at full width: (ab1)
+    ``serving/bench.py`` (the closed loop, the overload phase, 3 paired
+    legacy rounds, then the learned-ladder replay of a seeded heavy-tail
+    trace), its six invariants held, and the in-process p50 per kind beside
+    (http)'s concurrent p50 of this call (``http`` None: (http) is run here
+    on a fresh bundle); (ab2) ``harness/profile.py iteration``; (ab3)
+    ``harness/profile.py wgan``, whose critic-forward count must equal the
+    analytic one and whose round must count every critic step."""
+    from gan_deeplearning4j_tpu_torch.harness import profile
+    from gan_deeplearning4j_tpu_torch.harness.experiment import forward_flops
+    from gan_deeplearning4j_tpu_torch.models.wgan_gp import WganGpConfig, build_critic
+    from gan_deeplearning4j_tpu_torch.serving import ServingEngine, bench
+
+    t_phase = time.perf_counter()
+    if http is None:
+        bundle_dir = os.path.join(directory, "ab_http_bundle")
+        os.makedirs(bundle_dir, exist_ok=True)
+        _build_bundle(bundle_dir)
+        engine = ServingEngine.from_bundle(bundle_dir, device="cuda")
+        http = _check_http(engine)
+        engine.close()
+    seconds = {}
+
+    # (ab1) the serving bench
+    t0 = time.perf_counter()
+    serve = bench.run_bench(bench.parse_args(AB1_ARGS))
+    trace_path = os.path.join(directory, "ab1_heavy_tail.json")
+    sizes = np.minimum(np.random.default_rng(17).zipf(1.6, AB1_TRACE_SIZES), 128)
+    with open(trace_path, "w") as fh:
+        json.dump({"name": "heavy_tail_seed17", "sizes": [int(s) for s in sizes]}, fh)
+    replay = bench.run_replay(bench.parse_args(["--replay", trace_path]))
+    seconds["ab1"] = time.perf_counter() - t0
+    invariants = {**serve["invariants"], **{f"replay_{k}": v for k, v in replay["invariants"].items()}}
+    res = serve["results"]
+    inproc = {kind: {"p50_ms": lat["p50"], "p99_ms": lat["p99"]} for kind, lat in res["latency_ms"].items()}
+    print(json.dumps({
+        "phase": "measurement_serve", "threads": serve["config"]["threads"],
+        "platform": serve["config"]["platform"], "invariants": invariants,
+        "rows_per_s": res["throughput_rows_per_s"], "requests_per_s": res["throughput_rps"],
+        "latency_ms": inproc, "stage_ms": res["pipeline"]["stage_ms"],
+        "stage_occupancy": res["pipeline"]["stage_occupancy"], "flushes": res["flushes"],
+        "batch_occupancy": res["batch_occupancy"], "warmup_compile_s": res["warmup_compile_s"],
+        "compile_counts": res["compile_counts"], "serve_compile_counts": res["serve_compile_counts"],
+        "overload": serve["overload"], "compare": serve["compare"], "card": card}))
+    print(json.dumps({
+        "phase": "measurement_inprocess_vs_http", "threads": serve["config"]["threads"],
+        "inprocess_p50_ms": {k: v["p50_ms"] for k, v in inproc.items()},
+        "inprocess_p99_ms": {k: v["p99_ms"] for k, v in inproc.items()},
+        "http_concurrent_p50_ms": http["http_concurrent_p50_ms"],
+        "http_minus_inprocess_p50_ms": {k: http["http_concurrent_p50_ms"] - v["p50_ms"]
+                                        for k, v in inproc.items()},
+        "card": card}))
+    print(json.dumps({
+        "phase": "measurement_replay", "ladder": replay["ladder"], "waste": replay["waste"],
+        "elasticity": replay["elasticity"],
+        "p99_ms": {name: {k: v["p99"] for k, v in p["latency_ms"].items()}
+                   for name, p in replay["phases"].items()},
+        "rows_per_s": {name: p["throughput_rows_per_s"] for name, p in replay["phases"].items()},
+        "invariants": replay["invariants"], "card": card}))
+    if not all(invariants.values()) or serve["config"]["platform"] != "gpu":
+        raise AssertionError(f"(ab1) the serving bench: invariants {invariants}, "
+                             f"platform {serve['config']['platform']}")
+    if len(serve["compare"]["rounds"]) != 3:
+        raise AssertionError(f"(ab1) paired rounds: {serve['compare']}")
+
+    # (ab2) the iteration profile
+    t0 = time.perf_counter()
+    iteration = _quiet(profile.run_iteration, profile.parse_args(AB2_ARGS))
+    seconds["ab2"] = time.perf_counter() - t0
+    for run in iteration["runs"]:
+        print(json.dumps({"phase": "measurement_iteration", "batch": iteration["batch"],
+                          **{k: v for k, v in run.items() if k != "phase_report"}, "card": card}))
+        if run["device_busy_share"] is None or not run["top_kernels"]:
+            raise AssertionError(f"(ab2) {run['compute_dtype']}: the trace holds no kernel")
+    print(json.dumps({"phase": "measurement_iteration_sweep", "sweep": iteration["batch_sweep"],
+                      "card": card}))
+
+    # (ab3) the WGAN-GP round
+    t0 = time.perf_counter()
+    wgan = _quiet(profile.run_wgan, profile.parse_args(AB3_ARGS))
+    seconds["ab3"] = time.perf_counter() - t0
+    critic = build_critic(WganGpConfig(**wgan["model"]))
+    analytic = forward_flops(critic, wgan["shapes"]["batch"])
+    dgrad = wgan["wall"]["dgrad2d"]
+    print(json.dumps({
+        "phase": "measurement_wgan", **wgan,
+        "critic_forward_analytic": analytic,
+        # beside the untimed-by-the-profiler round, as section 5's host ms is
+        "dgrad2d_of_round_ms": [dgrad["ms_per_round"], wgan["wall"]["sec_per_round"] * 1e3],
+        "section5_dgrad2d_of_round_ms": list(AB3_SECTION5_MS), "card": card}))
+    if wgan["costs_flops"]["critic_forward"] != analytic:
+        raise AssertionError(f"(ab3) critic forward {wgan['costs_flops']['critic_forward']} "
+                             f"against the analytic {analytic}")
+    if wgan["analysis"]["round_over_ncritic_fullgrad"] != 1.0 or wgan["wall"]["device_busy_share"] is None:
+        raise AssertionError(f"(ab3) {wgan['analysis']}, busy {wgan['wall']['device_busy_share']}")
+    seconds["total"] = time.perf_counter() - t_phase
+    print(json.dumps({"phase": "measurement_seconds", **seconds, "card": card}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"serve": {k: serve[k] for k in ("config", "results", "overload", "compare", "invariants")},
+            "replay": replay, "iteration": iteration, "wgan": wgan, "http": http,
+            "seconds": seconds}
+
+
 #: the phases ``--only`` can run by themselves: (x, y, directory, card); "reload"
 #: builds (t)'s bundle first, "replicas" the bundle and its int8 variant
 _TRAINING_ONLY = {"windows": lambda *a: _phase_windows(*a),
@@ -4828,7 +4984,8 @@ _TRAINING_ONLY = {"windows": lambda *a: _phase_windows(*a),
                   "reload": lambda x, y, d, card: (_build_bundle(d), _phase_reload(d, d, card)),
                   "fleet": lambda *a: _phase_fleet(*a),
                   "replicas": lambda x, y, d, card: _phase_replicas(x, y, d, _int8_variant(d), card),
-                  "analysis": lambda x, y, d, card: _phase_analysis(card)}
+                  "analysis": lambda x, y, d, card: _phase_analysis(card),
+                  "measurement": lambda *a: _phase_measurement(*a)}
 
 
 def _int8_variant(directory: str) -> str:
@@ -4950,7 +5107,8 @@ def main(argv=None) -> int:
                          ("resilience", lambda: _phase_resilience(x, y, directory, card)),
                          ("fleet", lambda: _phase_fleet(x, y, directory, card)),
                          ("replicas", lambda: _phase_replicas(x, y, directory, int8_dir, card)),
-                         ("analysis", lambda: _phase_analysis(card))):
+                         ("analysis", lambda: _phase_analysis(card)),
+                         ("measurement", lambda: _phase_measurement(x, y, directory, card, http))):
             t0 = time.perf_counter()
             try:
                 families[key] = run()
@@ -4960,7 +5118,7 @@ def main(argv=None) -> int:
             seconds[key] = time.perf_counter() - t0
     if failed:
         print(f"chip_smoke: family / bf16 / window / int8 / serving / zoo / parallel / eval / "
-              f"resilience / fleet / replicas / analysis phases "
+              f"resilience / fleet / replicas / analysis / measurement phases "
               f"failed: {failed}",
               file=sys.stderr)
         return 1
