@@ -210,7 +210,8 @@ v. (v1) NCCL at world size 1, in this process (a ``FileStore``
    iterations, ``pmean`` at a global 800 with and without update sharding,
    ``wgan_gp`` ``pmean`` at 320, the dis graph's sharded steps both ways;
    every rank's states bit-identical; ``pmean`` at world 4 against one
-   card at 800 and against four CPU ranks, within (a)'s limits (the
+   card at 800 and against four CPU ranks (spawned beside the card's, at
+   the same time), within (a)'s limits (the
    classifier's frozen-layer caches apart); WGAN-GP's first critic and
    generator steps within (e)'s (the round reported); update sharding
    bit-equal to the replicated run, its reduce-scatter variant to
@@ -220,8 +221,10 @@ v. (v1) NCCL at world size 1, in this process (a ``FileStore``
    same state; (v4) timing, recorded: the single card against NCCL world
    1, captured, MNIST b200 (median of 20 after 5 warm, NCCL's share of the
    kernel time), and gloo world 4 eager (ms, rows/s over the ranks, the
-   host staging's share). ``--only parallel`` runs (v) alone, as a
-   rehearsal, with no result line.
+   host staging's share; timed while the CPU ranks and (v1) run beside
+   them). (v2)'s two spawns start before (v1) and run beside it, and
+   (v3)'s world-2 spawn beside its restores in this process. ``--only
+   parallel`` runs (v) alone, as a rehearsal, with no result line.
 
 Then evaluation (``eval/``), the quality run's path:
 
@@ -256,7 +259,7 @@ y. every worker serves the full-width MNIST DCGAN bundle of (x)'s workload
    reload drill (``deploy/drill.py``) through processes (12 trainer steps,
    serve every 2), its invariants, publish→served and
    canary seconds; (y2) the fleet fault drill (``fleet/drill.py``): 2
-   workers, 12 trainer steps, serving once — SIGKILL, SIGSTOP,
+   workers, 4 trainer steps, serving once — SIGKILL, SIGSTOP,
    rolling upgrades through the sidecar canary, poison, trace propagation
    folded by ``telemetry.trace_report``, fleet aggregation — every worker,
    probe and trainer on the card and capturing nothing after warmup, each
@@ -297,8 +300,9 @@ z. the MNIST DCGAN bundle (ladder 1, 8, 32, 128) on every card the host
    ``--only replicas`` runs (z) alone.
 aa. the static analyzer (``gan_deeplearning4j_tpu_torch/analysis``): (aa1) it
    reads the checkout (the port and this script) on the card's host with
-   every rule: the files, the seconds, no active finding and no
-   suppression; (aa2) for JG006, JG005, JG004 and JG002 with JG015, one
+   every rule, in a process of its own started before the bf16 phases
+   (``AA_START_BEFORE``), which run beside it: the files, the seconds, no
+   active finding and no suppression; (aa2) for JG006, JG005, JG004 and JG002 with JG015, one
    true positive and one true negative (``AA_PAIRS``), each run on
    ``cuda:0`` and analyzed: a static output's alias read after a later
    replay reads the later result and a clone reads its own; ``.item()``
@@ -341,6 +345,23 @@ ab. ``serving/bench.py`` and ``harness/profile.py`` on ``cuda:0`` at the
    32-round window, and ``dgrad2d``'s share of a traced round beside
    PERF.md section 5's. ``--only measurement`` runs (ab) alone (with
    (http) on a fresh bundle first).
+ac. the calibration modules, each through its own entry point on
+   ``cuda:0``: (ac1) ``harness/mfu.py`` at its defaults (a 4096² product
+   chain in bf16 and in fp32, the bare compute core of the MNIST iteration
+   and the captured full iteration at 64 and 256): both gemm tiers'
+   ``frac_of_peak`` in (0, 1], each bare step's FLOPs equal to
+   ``flops_per_iteration`` and its seconds at most the full iteration's,
+   the MFU keys against the card's fp32 peak; (ac2) ``parallel/bench.py
+   --mesh 4 --iterations 8 --rounds 2``, four gloo ranks sharing the card:
+   every invariant (parity within 5e-2, resident updater bytes a rank at
+   most 1.35/4 of replicated), the sharded and replicated digests equal,
+   the collectives issued and the step-time ratio recorded; (ac3)
+   ``eval/tune_sweep.py`` twice from a directory of its own: 40 iterations
+   of b200 on 2,000 rows, quick FID on 512 samples every 20, two grid
+   arms and the four lever arms, then ``--resume-from`` the first's output
+   with a third generator rate: the JAX script's keys, and the second
+   trains only the new arm and marks six ``resumed``. Each sub-phase's
+   seconds are printed. ``--only calibration`` runs (ac) alone.
 
 Every number is printed beside the card's name and power limit. The
 ``kernels`` line lists ``quant_dense`` (the JAX package has no Pallas
@@ -354,6 +375,7 @@ last line is
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -1904,9 +1926,11 @@ def _serving_breakdown(engines: dict, runs: int = 10) -> list:
                 row[f"{name}_quant_dense_ms_per_run"] = quant_us / runs / 1e3
                 engine.captured = False
                 try:
-                    # a window the profiler returns without one device event
-                    # lost its trace (seen once on the card, int8 features/8):
-                    # it says nothing about the ranges, so it is taken again
+                    # a window whose trace lost device events says nothing
+                    # about the ranges, so it is taken again: seen on the card
+                    # with none at all (int8 features/8) and with most lost
+                    # (int8 classify/8: 1.2 kernels a run in the ranges, 3.7
+                    # in the whole run)
                     for _ in range(3):
                         with _dense_ranges(), torch.profiler.profile(activities=[
                                 torch.profiler.ProfilerActivity.CPU,
@@ -1914,19 +1938,22 @@ def _serving_breakdown(engines: dict, runs: int = 10) -> list:
                             for _ in range(runs):
                                 engine.run(kind, rows)
                         events = prof.events()
-                        if any(ev.device_type == torch.autograd.DeviceType.CUDA for ev in events):
+                        kernels = [k for ev in events if ev.name == DENSE_RANGE
+                                   and ev.device_type == torch.autograd.DeviceType.CPU
+                                   for k in _range_kernels(ev)]
+                        # the profiler links a kernel to a range through the
+                        # aten op that launched it; quant_dense is launched
+                        # through ctypes, by no op, so it is linked to none.
+                        # Only the dense ranges launch it, so its device
+                        # events are all theirs.
+                        kernels += [(ev.name, ev.time_range.end - ev.time_range.start)
+                                    for ev in events
+                                    if ev.device_type == torch.autograd.DeviceType.CUDA
+                                    and "quant_dense" in ev.name]
+                        if len(kernels) >= 2 * runs:
                             break
                 finally:
                     engine.captured = True
-                kernels = [k for ev in events
-                           if ev.name == DENSE_RANGE and ev.device_type == torch.autograd.DeviceType.CPU
-                           for k in _range_kernels(ev)]
-                # the profiler links a kernel to a range through the aten op
-                # that launched it; quant_dense is launched through ctypes, by
-                # no op, so it is linked to none. Only the dense ranges launch
-                # it, so its device events are all theirs.
-                kernels += [(ev.name, ev.time_range.end - ev.time_range.start) for ev in events
-                            if ev.device_type == torch.autograd.DeviceType.CUDA and "quant_dense" in ev.name]
                 row[f"{name}_dense_layers_ms_per_run"] = sum(us for _, us in kernels) / runs / 1e3
                 row[f"{name}_dense_layers_kernels_per_run"] = len(kernels) / runs
                 row[f"{name}_dense_layers_kernel_names"] = sorted({k for k, _ in kernels})
@@ -3155,18 +3182,10 @@ def _parallel_phases(mesh, x, y, directory: str, card: str) -> dict:
     from gan_deeplearning4j_tpu_torch.parallel.launch import spawn
 
     out, failed = {}, []
-    t0 = time.perf_counter()
-    out["nccl_world1"] = []
-    for name, family, batch, overrides, k in PARALLEL_CASES:
-        row, ok = _parallel_case(mesh, name, family, batch, overrides, k, x, y, card)
-        out["nccl_world1"].append(row)
-        if not ok:
-            failed.append(f"v1 {name}")
-    out["seconds"] = {"v1": time.perf_counter() - t0}
-
     # (v2) four gloo ranks sharing the card, every scenario in one spawn;
-    # the same pmean and WGAN-GP runs on four CPU ranks; one card alone
-    t0 = time.perf_counter()
+    # the same pmean and WGAN-GP runs on four CPU ranks; one card alone.
+    # Both spawns start first and run beside (v1)
+    t_v2 = time.perf_counter()
     gen_dir = os.path.join(directory, "parallel_generation")
     os.makedirs(gen_dir, exist_ok=True)
     rows = WORKERS * WORKER_ROWS
@@ -3202,8 +3221,6 @@ def _parallel_phases(mesh, x, y, directory: str, card: str) -> dict:
                                           labels=soft[0, :rows], steps=3, shard_updates=True,
                                           use_accelerator=True)),
     }
-    card_ranks = spawn(drill.run_all, WORKERS, (scen,), backend="gloo", use_accelerator=True,
-                       timeout=600, threads=2)
     cpu_scen = {
         "pmean": ("experiment_run", dict(config={**mnist, "distributed": "pmean",
                                                  "use_accelerator": False},
@@ -3213,9 +3230,27 @@ def _parallel_phases(mesh, x, y, directory: str, card: str) -> dict:
         "wgan_first_steps": ("wgan_first_steps", dict(config={**wgan, "use_accelerator": False},
                                                       batch=wx[0])),
     }
-    cpu_ranks = spawn(drill.run_all, WORKERS, (cpu_scen,), backend="gloo", use_accelerator=False,
-                      timeout=600, threads=2)
-    out["seconds"]["v2_spawns"] = time.perf_counter() - t0
+    # the card's ranks, the CPU's and (v1) in this process side by side: none
+    # reads another's results, and each spawn is mostly process boots and
+    # host-staged collectives (the card ranks' timed iterations share the
+    # host and the card with the others, so (v4)'s gloo timing is recorded
+    # under that load)
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
+        card_spawn = pool.submit(spawn, drill.run_all, WORKERS, (scen,), backend="gloo",
+                                 use_accelerator=True, timeout=600, threads=2)
+        cpu_spawn = pool.submit(spawn, drill.run_all, WORKERS, (cpu_scen,), backend="gloo",
+                                use_accelerator=False, timeout=600, threads=2)
+        # (v1) NCCL at world 1 in this process, captured
+        t0 = time.perf_counter()
+        out["nccl_world1"] = []
+        for name, family, batch, overrides, k in PARALLEL_CASES:
+            row, ok = _parallel_case(mesh, name, family, batch, overrides, k, x, y, card)
+            out["nccl_world1"].append(row)
+            if not ok:
+                failed.append(f"v1 {name}")
+        out["seconds"] = {"v1": time.perf_counter() - t0}
+        card_ranks, cpu_ranks = card_spawn.result(), cpu_spawn.result()
+    out["seconds"]["v2_spawns"] = time.perf_counter() - t_v2
     single = _parallel_experiment("mnist", rows)
     single_losses = _loss_row(single.train_iteration(fx[0], fy[0]))
     single_flat = _flat(single)
@@ -3306,18 +3341,23 @@ def _parallel_phases(mesh, x, y, directory: str, card: str) -> dict:
     # against two from a whole-file checkpoint of the same state
     t0 = time.perf_counter()
     pmean = {**mnist, "distributed": "pmean"}
-    from_shards = _parallel_experiment("mnist", rows, mesh, distributed="pmean")
-    from_shards.load_models(gen_dir)
-    restored = _flat(from_shards)
-    whole_dir = os.path.join(directory, "parallel_whole")
-    from_shards.save_models(whole_dir)
-    from_whole = _parallel_experiment("mnist", rows, mesh, distributed="pmean")
-    from_whole.load_models(whole_dir)
-    two = []
-    for exp in (from_shards, from_whole):
-        two.append([_loss_row(exp.train_iteration(fx[1 + i], fy[1 + i])) for i in range(2)])
-    world2 = spawn(drill.load_generation, 2, (pmean | {"use_accelerator": True}, gen_dir),
-                   backend="gloo", use_accelerator=True, timeout=300, threads=2)
+    # the world-2 restore reads only the generation: it runs beside this
+    # process's restores
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        world2_spawn = pool.submit(spawn, drill.load_generation, 2,
+                                   (pmean | {"use_accelerator": True}, gen_dir), backend="gloo",
+                                   use_accelerator=True, timeout=300, threads=2)
+        from_shards = _parallel_experiment("mnist", rows, mesh, distributed="pmean")
+        from_shards.load_models(gen_dir)
+        restored = _flat(from_shards)
+        whole_dir = os.path.join(directory, "parallel_whole")
+        from_shards.save_models(whole_dir)
+        from_whole = _parallel_experiment("mnist", rows, mesh, distributed="pmean")
+        from_whole.load_models(whole_dir)
+        two = []
+        for exp in (from_shards, from_whole):
+            two.append([_loss_row(exp.train_iteration(fx[1 + i], fy[1 + i])) for i in range(2)])
+        world2 = world2_spawn.result()
     row = {"phase": "parallel_checkpoints", "shards": sorted(os.listdir(gen_dir)),
            "world1_nccl_leaves_differing": _not_bit_equal(restored, pmean_card)[:5],
            "world2_gloo_leaves_differing": sorted({k for r in world2 for k in _not_bit_equal(
@@ -3880,9 +3920,9 @@ FLEET_PLATFORM = "gpu"
 Y1_STEPS, Y1_SERVE_EVERY, Y1_PUBLISH_EVERY = 12, 2, 6
 #: (y2) the fault drill cut to two workers and one serving generation, so one
 #: canary and one roll (3 workers, 24 steps serving every 6 took 166-179 s on
-#: the card, and the whole script 1,234 s on a slow host): workers, trainer
-#: steps, serve cadence
-Y2_WORKERS, Y2_STEPS, Y2_SERVE_EVERY = 2, 12, 12
+#: the card, and the whole script 1,234 s on a slow host), trained in 4 steps
+#: (12 until the (ac) phase joined): workers, trainer steps, serve cadence
+Y2_WORKERS, Y2_STEPS, Y2_SERVE_EVERY = 2, 4, 4
 #: (y3) the autoscale drill (smoke depth): min, max, burst threads
 Y3_MIN, Y3_MAX, Y3_BURST = 1, 3, 12
 #: (y4) the alerts drill (smoke depth): workers, burst threads
@@ -3917,7 +3957,7 @@ def _phase_fleet(x, y, directory: str, card: str) -> dict:
     DCGAN bundle of (x)'s workload: (y1) the reload drill through processes
     (the serving CLI with ``--reload-store``, the supervised trainer with
     ``--serve-store``, a poisoned generation); (y2) the fault drill (2
-    workers, 12 trainer steps, serving once: SIGKILL, SIGSTOP, rolling
+    workers, 4 trainer steps, serving once: SIGKILL, SIGSTOP, rolling
     upgrades through the sidecar canary, poison, trace propagation, fleet
     aggregation), with every worker boot split from its stamps; (y3) the
     autoscale drill 1 → 3 under a burst; (y4) the alerts drill; (y5) the mux
@@ -4760,32 +4800,59 @@ def _aa_outcome(code: str, side: str, out: dict) -> bool:
     return out["wall_ms"] >= out["event_ms"]
 
 
-def _phase_analysis(card: str) -> dict:
+#: (aa1) the analyzer's process: the checkout's port and this script, every rule
+_AA1_CODE = """import json, time
+from gan_deeplearning4j_tpu_torch.analysis import analyze_paths
+t0 = time.perf_counter()
+report = analyze_paths(["gan_deeplearning4j_tpu_torch", "chip_smoke.py"], root=".")
+print(json.dumps({"files": report.files, "seconds": time.perf_counter() - t0,
+                  "active": len(report.active), "baselined": len(report.baselined),
+                  "suppressed": len(report.suppressed),
+                  "findings": [f.render() for f in report.active + report.suppressed]}))
+"""
+#: seconds (aa) waits for the analyzer's process
+AA1_TIMEOUT_S = 300
+#: the phase of the main run before which (aa1)'s analyzer and (aa2)'s JG005
+#: child start in processes of their own: the bf16 card-vs-CPU, resume and
+#: publish-and-serve checks (about 35 s, none of them timed) run beside them
+AA_START_BEFORE = "bf16_card_vs_cpu"
+
+
+def _start_analysis() -> dict:
+    """(aa1)'s analyzer and (aa2)'s JG005 child, started in processes of
+    their own from the checkout's root: ``{"analyzer": Popen, "child":
+    Popen}``; :func:`_phase_analysis` reads and ends them."""
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def start(code: str):
+        return subprocess.Popen([sys.executable, "-c", code], cwd=root, stdin=subprocess.DEVNULL,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    return {"analyzer": start(_AA1_CODE),
+            "child": start(AA_PAIRS[AA_CHILD][0] + "\nprint(run('cuda:0'))\n")}
+
+
+def _phase_analysis(card: str, started=None) -> dict:
     """(aa1) the port's analyzer over the checkout, on this host; (aa2)
     each device pair run on the card and read by the analyzer: the rule
     fires on the true positive, whose bug shows on the card, and is silent
     on the true negative, whose result is right; (aa3) the same for the
     flow rules' pairs (``AA3_PAIRS``), each side's modules read together,
     the pair's code the only one the true positive gets and none on the
-    true negative."""
-    from gan_deeplearning4j_tpu_torch.analysis import analyze_paths
-
+    true negative. ``started`` is :func:`_start_analysis`'s, when the main
+    run started them earlier; else they start here."""
     t_phase = time.perf_counter()
-    root = os.path.dirname(os.path.abspath(__file__))
-    # the child starts first and boots while the analyzer runs
-    child = subprocess.Popen(
-        [sys.executable, "-c", AA_PAIRS[AA_CHILD][0] + "\nprint(run('cuda:0'))\n"], cwd=root,
-        stdin=subprocess.DEVNULL, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    started = started or _start_analysis()
+    analyzer, child = started["analyzer"], started["child"]
     try:
-        t0 = time.perf_counter()
-        report = analyze_paths(["gan_deeplearning4j_tpu_torch", "chip_smoke.py"], root=root)
-        tree = {"files": report.files, "seconds": time.perf_counter() - t0,
-                "active": len(report.active), "baselined": len(report.baselined),
-                "suppressed": len(report.suppressed)}
+        stdout, stderr = analyzer.communicate(timeout=AA1_TIMEOUT_S)
+        if analyzer.returncode != 0:
+            raise AssertionError(f"(aa1) the analyzer exited {analyzer.returncode}:\n{stderr[-3000:]}")
+        report = json.loads(stdout.strip().splitlines()[-1])
+        tree = {k: report[k] for k in ("files", "seconds", "active", "baselined", "suppressed")}
         print(json.dumps({"phase": "analysis_tree", **tree, "card": card}))
-        if report.active or report.suppressed:
-            raise AssertionError("(aa1) the port's analyzer finds:\n"
-                                 + "\n".join(f.render() for f in report.active + report.suppressed))
+        if report["active"] or report["suppressed"]:
+            raise AssertionError("(aa1) the port's analyzer finds:\n" + "\n".join(report["findings"]))
         pairs, failed = {}, []
         for code, (tp, tn) in AA_PAIRS.items():
             row = {}
@@ -4826,9 +4893,10 @@ def _phase_analysis(card: str) -> dict:
                               "card": card}))
         aa3_s = time.perf_counter() - t_aa3
     finally:
-        if child.poll() is None:
-            child.kill()
-            child.wait()
+        for proc in (analyzer, child):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     seconds = time.perf_counter() - t_phase
     print(json.dumps({"phase": "analysis_seconds", "seconds": seconds, "aa3_seconds": aa3_s,
                       "card": card}))
@@ -4973,6 +5041,138 @@ def _phase_measurement(x, y, directory: str, card: str, http=None) -> dict:
             "seconds": seconds}
 
 
+# -- (ac) calibration: the MFU ceiling, the update-sharding bench, the tuning sweep ---
+
+#: (ac1) ``harness/mfu.py`` at its defaults (--gemm-n 4096 --batches 64,256)
+AC1_ARGS = []
+#: (ac2) four gloo ranks sharing the card, two rounds of 8 timed iterations an arm
+AC2_ARGS = ["--mesh", "4", "--iterations", "8", "--rounds", "2"]
+#: (ac3) two grid arms and the four lever arms, 40 iterations of b200 each
+AC3_ARGS = ["--iterations", "40", "--eval-every", "20", "--num-train", "2000", "--num-test", "500",
+            "--select-samples", "512", "--dis-lrs", "0.002", "--gen-lrs", "0.004,0.008"]
+#: (ac3) the resumed call's generator rates: one arm more
+AC3_RESUME_GEN_LRS = "0.004,0.008,0.002"
+#: the keys of ``scripts/tune_sweep.py``'s output and of each trained arm
+AC3_OUTPUT_KEYS = ("data_source", "iterations", "batch_size", "platform", "device_kind",
+                   "reference_point", "arms", "ranking_by_best_quick_fid",
+                   "ranking_by_final_quick_fid", "wall_seconds")
+AC3_ARM_KEYS = ("label", "dis_lr", "gen_lr", "resample_label_noise", "dis_lr_decay_every",
+                "dis_lr_decay_rate", "best_quick_fid", "best_at_iteration", "final_quick_fid",
+                "accuracy", "d_loss_final", "g_loss_final", "quick_fid_curve", "wall_seconds")
+#: (ac)'s budget in seconds, recorded beside its time
+AC_BUDGET_S = 100.0
+
+
+def _calibration_mfu(card: str) -> dict:
+    """(ac1) The MFU report and its checks (a list of what failed)."""
+    from gan_deeplearning4j_tpu_torch.harness import mfu
+
+    report = _quiet(mfu.run, mfu.parse_args(AC1_ARGS))
+    failed = []
+    fracs = {tier: report[tier]["frac_of_peak"] for tier in ("gemm", "gemm_fp32")}
+    if report["platform"] != "gpu" or not all(f is not None and 0.0 < f <= 1.0 for f in fracs.values()):
+        failed.append(f"gemm frac_of_peak {fracs} on {report['platform']}")
+    for name, batch in mfu.ACHIEVED_CONFIGS.items():
+        bare, full = report["bare"].get(str(batch)), report["achieved_iteration"].get(name)
+        if bare is None or full is None or report["achieved"][name] is None:
+            failed.append(f"b{batch}: bare {bare}, achieved {full}")
+            continue
+        if bare["flops_per_iter"] != full["flops_per_iter"]:
+            failed.append(f"b{batch}: bare FLOPs {bare['flops_per_iter']} against "
+                          f"flops_per_iteration {full['flops_per_iter']}")
+        if bare["sec_per_iter"] > full["sec_per_iter"]:
+            failed.append(f"b{batch}: bare {bare['sec_per_iter']} s above the full "
+                          f"iteration's {full['sec_per_iter']} s")
+        if bare["peak_flops"] != report["peak_flops_fp32_assumed"] or bare["bare_mfu"] is None:
+            failed.append(f"b{batch}: bare MFU {bare['bare_mfu']} against {bare['peak_flops']}")
+    print(json.dumps({"phase": "calibration_mfu", **report, "card": card}))
+    return {"report": report, "failed": failed}
+
+
+def _calibration_sharding(card: str) -> dict:
+    """(ac2) The update-sharding bench on four gloo ranks sharing the card."""
+    from gan_deeplearning4j_tpu_torch.parallel import bench as sharding_bench
+
+    summary = _quiet(sharding_bench.run, sharding_bench.parse_args(AC2_ARGS))
+    entry = summary["results"][0]
+    print(json.dumps({"phase": "calibration_update_sharding", "platform": summary["platform"],
+                      "invariants": summary["invariants"],
+                      **{k: v for k, v in entry.items() if k != "plan"},
+                      "plan_groups": {m: len(p["groups"]) for m, p in entry["plan"].items()},
+                      "card": card}))
+    failed = []
+    if not summary["invariants"] or not all(summary["invariants"].values()):
+        failed.append(f"invariants {summary['invariants']}")
+    if entry["backend"] != "gloo" or summary["platform"] != "gpu":
+        failed.append(f"ran on {entry['backend']} / {summary['platform']}")
+    if entry["parity_digest_exact_iter1"] is not True:
+        failed.append("the sharded digest differs from the replicated one after one iteration")
+    if not entry["resident_ratio"] <= 1.35 / 4 or set(entry["arms"]) != {"replicated", "sharded"}:
+        failed.append(f"resident ratio {entry['resident_ratio']}, arms {sorted(entry['arms'])}")
+    return {"summary": summary, "failed": failed}
+
+
+def _calibration_sweep(directory: str, card: str) -> dict:
+    """(ac3) The tuning sweep, then the same sweep resumed from its output
+    with one more arm, from a directory of their own."""
+    from gan_deeplearning4j_tpu_torch.eval import tune_sweep
+
+    workdir = os.path.join(directory, "ac3_sweep")
+    os.makedirs(workdir, exist_ok=True)
+    first_path = os.path.join(workdir, "sweep.json")
+    with contextlib.chdir(workdir):
+        first = _quiet(tune_sweep.run, tune_sweep.parse_args(AC3_ARGS))
+        with open(first_path, "w") as fh:
+            json.dump(first, fh)
+        again = _quiet(tune_sweep.run, tune_sweep.parse_args(
+            AC3_ARGS[:-1] + [AC3_RESUME_GEN_LRS, "--resume-from", first_path]))
+    failed = []
+    for name, out, n_arms, n_resumed in (("first", first, 6, 0), ("resumed", again, 7, 6)):
+        trained = [a for a in out["arms"] if not a.get("resumed")]
+        if tuple(out) != AC3_OUTPUT_KEYS or any(tuple(a) != AC3_ARM_KEYS for a in trained):
+            failed.append(f"{name}: keys {list(out)}, arm keys {[list(a) for a in trained]}")
+        if len(out["arms"]) != n_arms or len(out["arms"]) - len(trained) != n_resumed:
+            failed.append(f"{name}: {len(out['arms'])} arms, {len(trained)} trained")
+        if out["platform"] != "gpu" or not all(np.isfinite(a["best_quick_fid"]) for a in trained):
+            failed.append(f"{name}: platform {out['platform']}, quick FIDs "
+                          f"{[a['best_quick_fid'] for a in trained]}")
+    new = [a["label"] for a in again["arms"] if not a.get("resumed")]
+    if new != ["lr_0.002x0.002"]:
+        failed.append(f"the resumed sweep trained {new}")
+    for name, out in (("first", first), ("resumed", again)):
+        print(json.dumps({"phase": f"calibration_sweep_{name}", "data_source": out["data_source"],
+                          "arms": [{k: v for k, v in a.items() if k != "quick_fid_curve"}
+                                   for a in out["arms"]],
+                          "ranking_by_best_quick_fid": out["ranking_by_best_quick_fid"],
+                          "ranking_by_final_quick_fid": out["ranking_by_final_quick_fid"],
+                          "wall_seconds": out["wall_seconds"], "card": card}))
+    return {"first": first, "resumed": again, "failed": failed}
+
+
+def _phase_calibration(x, y, directory: str, card: str) -> dict:
+    """(ac) The calibration modules on the card through their entry points:
+    (ac1) the MFU ceiling, (ac2) the update-sharding bench on four gloo
+    ranks sharing the card, (ac3) the tuning sweep and its resume."""
+    t_phase = time.perf_counter()
+    out, seconds, failed = {}, {}, []
+    for key, run in (("ac1", lambda: _calibration_mfu(card)),
+                     ("ac2", lambda: _calibration_sharding(card)),
+                     ("ac3", lambda: _calibration_sweep(directory, card))):
+        t0 = time.perf_counter()
+        out[key] = run()
+        seconds[key] = time.perf_counter() - t0
+        failed += [f"({key}) {f}" for f in out[key]["failed"]]
+        gc.collect()
+        torch.cuda.empty_cache()
+    seconds["total"] = time.perf_counter() - t_phase
+    print(json.dumps({"phase": "calibration_seconds", **seconds, "budget_s": AC_BUDGET_S,
+                      "within_budget": seconds["total"] <= AC_BUDGET_S, "card": card}))
+    out["seconds"] = seconds
+    if failed:
+        raise AssertionError(f"(ac) failed: {failed}")
+    return out
+
+
 #: the phases ``--only`` can run by themselves: (x, y, directory, card); "reload"
 #: builds (t)'s bundle first, "replicas" the bundle and its int8 variant
 _TRAINING_ONLY = {"windows": lambda *a: _phase_windows(*a),
@@ -4985,7 +5185,8 @@ _TRAINING_ONLY = {"windows": lambda *a: _phase_windows(*a),
                   "fleet": lambda *a: _phase_fleet(*a),
                   "replicas": lambda x, y, d, card: _phase_replicas(x, y, d, _int8_variant(d), card),
                   "analysis": lambda x, y, d, card: _phase_analysis(card),
-                  "measurement": lambda *a: _phase_measurement(*a)}
+                  "measurement": lambda *a: _phase_measurement(*a),
+                  "calibration": lambda *a: _phase_calibration(*a)}
 
 
 def _int8_variant(directory: str) -> str:
@@ -5082,6 +5283,7 @@ def main(argv=None) -> int:
         # each family, bf16, window and int8 phase runs even when an
         # earlier one failed; a failure still fails the run
         families, failed = {}, []
+        analysis = None  # (aa1)'s and (aa2)'s processes, started before AA_START_BEFORE
         for key, run in (("card_vs_cpu", lambda: _phase_family_card_vs_cpu(card)),
                          ("resume", lambda: _phase_family_resume(directory, card)),
                          ("run_publish", lambda: _phase_family_run_publish(directory, card)),
@@ -5107,8 +5309,11 @@ def main(argv=None) -> int:
                          ("resilience", lambda: _phase_resilience(x, y, directory, card)),
                          ("fleet", lambda: _phase_fleet(x, y, directory, card)),
                          ("replicas", lambda: _phase_replicas(x, y, directory, int8_dir, card)),
-                         ("analysis", lambda: _phase_analysis(card)),
-                         ("measurement", lambda: _phase_measurement(x, y, directory, card, http))):
+                         ("analysis", lambda: _phase_analysis(card, analysis)),
+                         ("measurement", lambda: _phase_measurement(x, y, directory, card, http)),
+                         ("calibration", lambda: _phase_calibration(x, y, directory, card))):
+            if key == AA_START_BEFORE:
+                analysis = _start_analysis()
             t0 = time.perf_counter()
             try:
                 families[key] = run()
@@ -5118,7 +5323,7 @@ def main(argv=None) -> int:
             seconds[key] = time.perf_counter() - t0
     if failed:
         print(f"chip_smoke: family / bf16 / window / int8 / serving / zoo / parallel / eval / "
-              f"resilience / fleet / replicas / analysis / measurement phases "
+              f"resilience / fleet / replicas / analysis / measurement / calibration phases "
               f"failed: {failed}",
               file=sys.stderr)
         return 1
