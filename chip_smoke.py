@@ -362,6 +362,21 @@ ac. the calibration modules, each through its own entry point on
    with a third generator rate: the JAX script's keys, and the second
    trains only the new arm and marks six ``resumed``. Each sub-phase's
    seconds are printed. ``--only calibration`` runs (ac) alone.
+ad. the multi-host smoke and the entry points (``entry.py``,
+   ``parallel/multihost.py``), started before the bf16 checks and read
+   after them: (ad1) ``spawn_multihost(2)`` with ``--platform gpu``, two
+   processes at a ``127.0.0.1`` TCP coordinator behind file barriers: 3
+   checksums each, equal across them, both ``up:`` lines on ``gpu`` with
+   their backend (gloo on ``cuda:0`` with one card, NCCL with a card per
+   process); the same smoke with ``--platform cpu``: ``pmean`` and
+   ``param_averaging`` card against CPU within (a)'s limits, the WGAN-GP
+   round reported; a process 0 launched alone exits 3 within its 10 s
+   barrier timeout; (ad2) ``run_multichip(2)``, two ranks on the card, the
+   six modes at ``ExperimentConfig``'s defaults: six mode lines, ranks
+   bit-identical, no float32 leaf under bf16 storage, no rank loads jax;
+   (ad3) ``entry()`` on the card against the CPU within 1e-4 of the largest
+   output, and the forward's ms. Each launch's seconds are printed.
+   ``--only multihost`` runs (ad) alone.
 
 Every number is printed beside the card's name and power limit. The
 ``kernels`` line lists ``quant_dense`` (the JAX package has no Pallas
@@ -5173,6 +5188,172 @@ def _phase_calibration(x, y, directory: str, card: str) -> dict:
     return out
 
 
+# -- (ad) the multi-host smoke and the entry points ----------------------------
+
+#: seconds each of (ad)'s launches may take
+AD_TIMEOUT_S = 300.0
+#: (ad1) the lone process 0's barrier timeout, and its start's slack on top
+#: (the interpreter and torch, under (ad)'s other processes' load)
+AD_LONE_BARRIER_S, AD_LONE_START_S = 10.0, 60.0
+#: (ad1) card against CPU: (a)'s limits on losses and every params leaf
+AD_LOSS_RTOL, AD_LEAF_REL = 1e-4, 5e-3
+#: (ad3) the forward's limit (of the largest output) and its timed runs
+AD3_TOL, AD3_RUNS = 1e-4, 20
+#: the phase of the main run before which (ad1)'s and (ad2)'s processes
+#: start, beside (aa)'s: the bf16 card-vs-CPU, resume and publish-and-serve
+#: checks (none of them timed) run beside them, and (ad) reads them before
+#: the bf16 timing
+AD_START_BEFORE = AA_START_BEFORE
+
+
+def _timed(fn, *args, **kwargs):
+    t0 = time.perf_counter()
+    return fn(*args, **kwargs), time.perf_counter() - t0
+
+
+def _start_multihost(directory: str) -> dict:
+    """(ad1)'s three launches and (ad2)'s ranks, each in a thread of its own
+    (each one's processes are its own): ``{"pool", "dirs", "lines",
+    name: future of (result, seconds)}``; :func:`_phase_multihost` reads
+    them and ends the pool."""
+    from gan_deeplearning4j_tpu_torch import entry
+
+    dirs = {p: os.path.join(directory, f"ad1_{p}") for p in ("gpu", "cpu")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    lines: list = []
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=4)
+    return {"pool": pool, "dirs": dirs, "lines": lines,
+            "gpu": pool.submit(_timed, entry.spawn_multihost, 2, AD_TIMEOUT_S, lines.append,
+                               platform="gpu", states_dir=dirs["gpu"]),
+            "cpu": pool.submit(_timed, entry.spawn_multihost, 2, AD_TIMEOUT_S, platform="cpu",
+                               states_dir=dirs["cpu"]),
+            "lone": pool.submit(_timed, entry.run_multihost, 2, platform="gpu",
+                                timeout=AD_TIMEOUT_S, barrier_timeout=AD_LONE_BARRIER_S,
+                                process_ids=[0]),
+            "multichip": pool.submit(_timed, entry.run_multichip, 2, True, timeout=AD_TIMEOUT_S)}
+
+
+def _smoke_states(directory: str) -> dict:
+    with np.load(os.path.join(directory, "process0.npz")) as f:
+        return {k: f[k] for k in f.files}
+
+
+def _multihost_card_vs_cpu(started: dict) -> tuple:
+    """(ad1) The smoke on the card and on the CPU from the same seeds:
+    each mode's losses and params leaves; (rows, what failed)."""
+    from gan_deeplearning4j_tpu_torch.harness.experiment import state_divergence
+
+    gpu, cpu = (_smoke_states(started["dirs"][p]) for p in ("gpu", "cpu"))
+    rows, failed = [], []
+    for mode in ("pmean", "param_averaging", "wgan_gp"):
+        losses = {k.split("/", 1)[1]: (float(gpu[k]), float(cpu[k])) for k in gpu
+                  if k.startswith(mode + "/") and "/params/" not in k}
+        params = [k for k in gpu if k.startswith(mode + "/params/")]
+        div = state_divergence({k: gpu[k] for k in params}, {k: cpu[k] for k in params})
+        rel = {k: abs(a - b) / max(abs(b), 1e-12) for k, (a, b) in losses.items()}
+        judged = mode != "wgan_gp"  # Adam at β1 = 0: reported, as (e) reports a round
+        rows.append({"mode": mode, "losses_card_cpu": losses, "loss_rel": rel, **div,
+                     "judged": judged})
+        if judged and (max(rel.values()) > AD_LOSS_RTOL or div["max_leaf_rel"] > AD_LEAF_REL):
+            failed.append(f"{mode} card vs CPU: losses {rel}, max_leaf_rel {div['max_leaf_rel']}")
+    return rows, failed
+
+
+def _entry_card_vs_cpu(card: str) -> tuple:
+    """(ad3) ``entry()``'s forward on the card against the same params and
+    z on the CPU, and its time (CUDA events, median of ``AD3_RUNS``)."""
+    from gan_deeplearning4j_tpu_torch import entry
+
+    fn, (params, z) = entry.entry()
+    out = fn(params, z)
+    ref = fn({k: {n: t.cpu() for n, t in lp.items()} for k, lp in params.items()}, z.cpu())
+    err = float((out.cpu() - ref).abs().max())
+    limit = AD3_TOL * float(ref.abs().max())
+    row = {"shape": list(out.shape), "max_abs_err": err, "limit": limit,
+           "forward_ms": _event_median_ms(lambda: fn(params, z), runs=AD3_RUNS),
+           "device": str(out.device), "card": card}
+    failed = [] if out.device.type == "cuda" and err <= limit else [
+        f"entry() on {out.device}: max_abs_err {err} against {limit}"]
+    return row, failed
+
+
+def _phase_multihost(card: str, directory: str, started=None) -> dict:
+    """(ad) The multi-host smoke and the entry points: (ad1)
+    ``spawn_multihost(2)`` on the card (two processes at a ``127.0.0.1``
+    coordinator with barriers: 3 checksums each, equal, ``up:`` lines on
+    ``gpu`` with their backend), the same smoke on the CPU (``pmean`` and
+    ``param_averaging`` card against CPU within (a)'s limits, WGAN-GP's
+    round reported), a process 0 launched alone (exit 3 within its barrier
+    timeout); (ad2) ``dryrun_multichip(2)``, two ranks on the card (six
+    mode lines, ranks bit-identical, no float32 leaf under bf16 storage);
+    (ad3) ``entry()`` on the card against the CPU, and its forward's ms."""
+    from gan_deeplearning4j_tpu_torch import entry
+    from gan_deeplearning4j_tpu_torch.runtime.environment import backend_for
+
+    t_phase = time.perf_counter()
+    started = started or _start_multihost(directory)
+    failed, seconds = [], {}
+    try:
+        results = {}
+        for name in ("gpu", "cpu", "lone", "multichip"):
+            try:
+                results[name], seconds[name] = started[name].result()
+            except Exception as exc:  # each launch reported; the phase fails below
+                traceback.print_exc()
+                failed.append(f"{name}: {type(exc).__name__}: {str(exc)[-2000:]}")
+    finally:
+        started["pool"].shutdown(wait=True)
+    seconds["joined_after"] = time.perf_counter() - t_phase
+    out = {}
+    if "gpu" in results and "cpu" in results:
+        sums = results["gpu"]
+        if any(c != sums[0] for c in sums[1:]) or any(len(c) != 3 for c in sums):
+            failed.append(f"(ad1) checksums {sums}")
+        backend = backend_for(2)
+        ups = [line for line in started["lines"] if " up: " in line]
+        want = f"platform=gpu backend={backend} device=cuda:"
+        if len(ups) != 2 or not all(want in line for line in ups):
+            failed.append(f"(ad1) up lines {ups}, want {want!r}")
+        rows, bad = _multihost_card_vs_cpu(started)
+        failed += [f"(ad1) {b}" for b in bad]
+        out["ad1"] = {"checksums_gpu": sums, "checksums_cpu": results["cpu"], "up": ups,
+                      "lines": started["lines"], "card_vs_cpu": rows}
+    if "lone" in results:
+        [(rc, stdout, _)] = results["lone"]
+        bound = AD_LONE_BARRIER_S + AD_LONE_START_S
+        if rc != 3 or "BARRIER TIMEOUT at 'boot'" not in stdout or seconds["lone"] > bound:
+            failed.append(f"(ad1) lone process 0: exit {rc} after {seconds['lone']:.1f} s "
+                          f"(bound {bound} s):\n{stdout[-1000:]}")
+        out["ad1_lone"] = {"exit": rc, "seconds": seconds["lone"],
+                           "barrier_timeout_s": AD_LONE_BARRIER_S}
+    if "multichip" in results:
+        try:
+            lines = entry.multichip_lines(2, results["multichip"])
+        except RuntimeError as exc:
+            failed.append(f"(ad2) {exc}")
+            lines = []
+        for line in lines:
+            print(line, flush=True)
+        out["ad2"] = {"lines": lines, "losses": {m: results["multichip"][0][m]["losses"]
+                                                 for m in entry.MULTICHIP_MODES},
+                      "jax_loaded": [r["jax_loaded"] for r in results["multichip"]]}
+        if len(lines) != 7 or any(r["jax_loaded"] for r in results["multichip"]):
+            failed.append(f"(ad2) {len(lines)} lines, jax loaded {out['ad2']['jax_loaded']}")
+    t0 = time.perf_counter()
+    out["ad3"], bad = _entry_card_vs_cpu(card)
+    failed += [f"(ad3) {b}" for b in bad]
+    seconds["ad3"] = time.perf_counter() - t0
+    seconds["total"] = time.perf_counter() - t_phase
+    out["seconds"] = seconds
+    print(json.dumps({"phase": "multihost", **{k: v for k, v in out.items() if k != "seconds"},
+                      "card": card}, default=str))
+    print(json.dumps({"phase": "multihost_seconds", **seconds, "card": card}))
+    if failed:
+        raise AssertionError(f"(ad) failed: {failed}")
+    return out
+
+
 #: the phases ``--only`` can run by themselves: (x, y, directory, card); "reload"
 #: builds (t)'s bundle first, "replicas" the bundle and its int8 variant
 _TRAINING_ONLY = {"windows": lambda *a: _phase_windows(*a),
@@ -5186,7 +5367,8 @@ _TRAINING_ONLY = {"windows": lambda *a: _phase_windows(*a),
                   "replicas": lambda x, y, d, card: _phase_replicas(x, y, d, _int8_variant(d), card),
                   "analysis": lambda x, y, d, card: _phase_analysis(card),
                   "measurement": lambda *a: _phase_measurement(*a),
-                  "calibration": lambda *a: _phase_calibration(*a)}
+                  "calibration": lambda *a: _phase_calibration(*a),
+                  "multihost": lambda x, y, d, card: _phase_multihost(card, d)}
 
 
 def _int8_variant(directory: str) -> str:
@@ -5284,6 +5466,7 @@ def main(argv=None) -> int:
         # earlier one failed; a failure still fails the run
         families, failed = {}, []
         analysis = None  # (aa1)'s and (aa2)'s processes, started before AA_START_BEFORE
+        multihost = None  # (ad1)'s and (ad2)'s launches, started before AD_START_BEFORE
         for key, run in (("card_vs_cpu", lambda: _phase_family_card_vs_cpu(card)),
                          ("resume", lambda: _phase_family_resume(directory, card)),
                          ("run_publish", lambda: _phase_family_run_publish(directory, card)),
@@ -5292,6 +5475,7 @@ def main(argv=None) -> int:
                          ("bf16_resume", lambda: _phase_bf16_resume(x, y, directory, card)),
                          ("bf16_publish_serve",
                           lambda: _phase_bf16_publish_serve(x, y, directory, directory, card)),
+                         ("multihost", lambda: _phase_multihost(card, directory, multihost)),
                          ("bf16_timing", lambda: _phase_bf16_timing(x, y, card)),
                          ("windows", lambda: _phase_windows(x, y, directory, card)),
                          ("capture_timing", lambda: _phase_capture_timing(x, y, card)),
@@ -5314,6 +5498,8 @@ def main(argv=None) -> int:
                          ("calibration", lambda: _phase_calibration(x, y, directory, card))):
             if key == AA_START_BEFORE:
                 analysis = _start_analysis()
+            if key == AD_START_BEFORE:
+                multihost = _start_multihost(directory)
             t0 = time.perf_counter()
             try:
                 families[key] = run()
@@ -5323,8 +5509,8 @@ def main(argv=None) -> int:
             seconds[key] = time.perf_counter() - t0
     if failed:
         print(f"chip_smoke: family / bf16 / window / int8 / serving / zoo / parallel / eval / "
-              f"resilience / fleet / replicas / analysis / measurement / calibration phases "
-              f"failed: {failed}",
+              f"resilience / fleet / replicas / analysis / measurement / calibration / "
+              f"multihost phases failed: {failed}",
               file=sys.stderr)
         return 1
     top = engine.buckets[-1]

@@ -225,9 +225,11 @@ def _backend(n: int, cpu: bool):
     """``(backend, device_name)`` of an N-rank mesh entry."""
     import torch
 
+    from gan_deeplearning4j_tpu_torch.runtime.environment import backend_for
+
     if cpu:
         return "gloo", "cpu"
-    return ("nccl" if torch.cuda.device_count() >= n else "gloo"), torch.cuda.get_device_name(0)
+    return backend_for(n), torch.cuda.get_device_name(0)
 
 
 def run(args) -> Dict:

@@ -1,5 +1,8 @@
-"""N ranks on one host — the port's counterpart of the JAX package's
-``__graft_entry__.spawn_multihost``, and of Spark's ``local[4]``.
+"""N ranks on one host — the port's counterpart of Spark's ``local[4]``.
+It meets its ranks at a ``FileStore``; processes that meet at a
+coordinator's ``host:port``, as the JAX package's
+``__graft_entry__.spawn_multihost`` starts them, are
+``gan_deeplearning4j_tpu_torch.entry.spawn_multihost``.
 
 ``spawn(fn, world_size, ...)`` starts ``world_size`` Python processes.
 Each joins one process group through a ``FileStore`` in a fresh temporary

@@ -20,18 +20,30 @@ Device and backend rules:
   on ``cuda:LOCAL_RANK % cards``. gloo's collectives on CUDA tensors go
   through host buffers (``parallel/collectives.py``).
 
-Where the group comes from: :func:`initialize_distributed` reads torchrun's
-``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` / ``MASTER_ADDR`` (an ``env://``
-rendezvous), or takes ``rank``, ``world_size`` and ``init_file`` (a
-``FileStore``) from its caller, as ``parallel/launch.py`` passes them. With
-neither, it initialises a world of one on a ``FileStore`` in a fresh
-temporary directory: a real process group whose collectives are made, so
-a run with ``distributed != "none"`` never takes a path that skips them.
+Where the group comes from, first match wins:
+
+- a coordinator (the JAX package's keywords ``coordinator_address``,
+  ``num_processes``, ``process_id``): N processes, on one host or many,
+  meet at a ``torch.distributed.TCPStore`` whose master, process 0, listens
+  at ``host:port``. The caller's ``timeout`` bounds the master's wait for
+  every process and each client's wait for the master. torchrun's
+  variables are ignored, so a process started from a torchrun rank does
+  not join that rank's group; under NCCL process ``i`` takes card
+  ``i % cards`` (processes that share a host need a card each);
+- ``rank``, ``world_size`` and ``init_file`` (a ``FileStore``) from the
+  caller, as ``parallel/launch.py`` passes them;
+- torchrun's ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` / ``MASTER_ADDR``
+  (an ``env://`` rendezvous);
+- with none of these, a world of one on a ``FileStore`` in a fresh
+  temporary directory: a real process group whose collectives are made,
+  so a run with ``distributed != "none"`` never takes a path that skips
+  them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import logging
 import os
 import tempfile
@@ -77,28 +89,66 @@ def _check_nccl(local_world: int) -> None:
             f"{cards} cards; name backend='gloo' to share a card")
 
 
+def backend_for(world_size: int, use_accelerator: bool = True) -> str:
+    """The backend of a ``world_size``-rank mesh on this host: NCCL where
+    the host has a card per rank, gloo otherwise (ranks sharing a card, or
+    the CPU under ``use_accelerator=False``)."""
+    if use_accelerator and torch.cuda.is_available() and torch.cuda.device_count() >= world_size:
+        return "nccl"
+    return "gloo"
+
+
+def _coordinator_store(address: str, num_processes: int, process_id: int,
+                       timeout: Optional[float]):
+    """The ``TCPStore`` of a coordinator rendezvous: process 0 listens at
+    ``host:port`` and waits for the others; every other process connects
+    to it."""
+    host, sep, port = address.rpartition(":")
+    if not sep or not host or not port.isdigit():
+        raise ValueError(f"coordinator_address must be host:port, not {address!r}")
+    if not 0 <= process_id < num_processes:
+        raise ValueError(f"process_id {process_id} outside {num_processes} processes")
+    kwargs = {} if timeout is None else {"timeout": datetime.timedelta(seconds=timeout)}
+    return dist.TCPStore(host.strip("[]"), int(port), num_processes, is_master=process_id == 0,
+                         wait_for_workers=True, **kwargs)
+
+
 def initialize_distributed(rank: Optional[int] = None, world_size: Optional[int] = None,
                            init_file: Optional[str] = None, backend: Optional[str] = None,
-                           use_accelerator: bool = True) -> dict:
+                           use_accelerator: bool = True, *,
+                           coordinator_address: Optional[str] = None,
+                           num_processes: Optional[int] = None,
+                           process_id: Optional[int] = None,
+                           timeout: Optional[float] = None) -> dict:
     """Join (or make) the default process group; a no-op when one exists.
 
-    Arguments left None come from torchrun's variables; where those are
-    absent too, this process is rank 0 of a world of one. ``init_file``
-    names a ``FileStore`` path (no TCP port); without it torchrun's
-    ``MASTER_ADDR`` is used, or, for a world of one, a file in a fresh
-    temporary directory. ``backend`` defaults to NCCL on the card and gloo
-    on the CPU. Returns :func:`backend_info`, which is logged."""
+    With ``coordinator_address`` (``host:port``), ``num_processes`` and
+    ``process_id`` this process meets the others at process 0's
+    ``TCPStore``, ``timeout`` seconds at most (None: torch's default), and
+    ``rank`` / ``world_size`` / ``init_file`` and torchrun's variables are
+    not read. Otherwise arguments left None come from torchrun's variables;
+    where those are absent too, this process is rank 0 of a world of one.
+    ``init_file`` names a ``FileStore`` path (no TCP port); without it
+    torchrun's ``MASTER_ADDR`` is used, or, for a world of one, a file in a
+    fresh temporary directory. ``backend`` defaults to NCCL on the card and
+    gloo on the CPU. Returns :func:`backend_info`, which is logged."""
     if not dist.is_available():
         raise RuntimeError("this torch build has no torch.distributed")
     if not dist.is_initialized():
-        rank = _env_int("RANK") if rank is None else rank
-        world_size = _env_int("WORLD_SIZE") if world_size is None else world_size
-        rank = 0 if rank is None else rank
-        world_size = 1 if world_size is None else world_size
-        local_rank = _env_int("LOCAL_RANK")
-        local_rank = rank if local_rank is None else local_rank
-        local_world = _env_int("LOCAL_WORLD_SIZE")
-        local_world = world_size if local_world is None else local_world
+        coordinated = coordinator_address is not None
+        if coordinated:
+            if num_processes is None or process_id is None:
+                raise ValueError("a coordinator needs num_processes and process_id")
+            rank, world_size, local_rank, local_world = process_id, num_processes, process_id, 1
+        else:
+            rank = _env_int("RANK") if rank is None else rank
+            world_size = _env_int("WORLD_SIZE") if world_size is None else world_size
+            rank = 0 if rank is None else rank
+            world_size = 1 if world_size is None else world_size
+            local_rank = _env_int("LOCAL_RANK")
+            local_rank = rank if local_rank is None else local_rank
+            local_world = _env_int("LOCAL_WORLD_SIZE")
+            local_world = world_size if local_world is None else local_world
         backend = backend or ("nccl" if use_accelerator else "gloo")
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; want one of {BACKENDS}")
@@ -106,8 +156,13 @@ def initialize_distributed(rank: Optional[int] = None, world_size: Optional[int]
             if not use_accelerator:
                 raise ValueError("NCCL runs on the card only; the CPU takes backend='gloo'")
             _check_nccl(local_world)
-            torch.cuda.set_device(local_rank)
-        if init_file is not None:
+            torch.cuda.set_device(local_rank % torch.cuda.device_count())
+        if coordinated:
+            store = _coordinator_store(coordinator_address, world_size, rank, timeout)
+            kwargs = {} if timeout is None else {"timeout": datetime.timedelta(seconds=timeout)}
+            dist.init_process_group(backend, store=store, rank=rank, world_size=world_size,
+                                    **kwargs)
+        elif init_file is not None:
             store = dist.FileStore(init_file, world_size)
             dist.init_process_group(backend, store=store, rank=rank, world_size=world_size)
         elif os.environ.get("MASTER_ADDR"):
@@ -118,8 +173,8 @@ def initialize_distributed(rank: Optional[int] = None, world_size: Optional[int]
             dist.init_process_group(backend, store=dist.FileStore(path, 1), rank=0, world_size=1)
         else:
             raise ValueError(
-                f"rank {rank} of {world_size}: give init_file (a FileStore path) or "
-                f"torchrun's MASTER_ADDR / MASTER_PORT")
+                f"rank {rank} of {world_size}: give init_file (a FileStore path), a "
+                f"coordinator_address, or torchrun's MASTER_ADDR / MASTER_PORT")
     info = backend_info()
     logger.info("Distributed runtime: %s", info)
     return info
@@ -166,16 +221,21 @@ class DataMesh:
 
 
 def make_mesh(use_accelerator: bool = True, backend: Optional[str] = None,
-              init_file: Optional[str] = None) -> DataMesh:
+              init_file: Optional[str] = None, *, coordinator_address: Optional[str] = None,
+              num_processes: Optional[int] = None, process_id: Optional[int] = None,
+              timeout: Optional[float] = None) -> DataMesh:
     """The data mesh over every rank of the default process group,
     initialising the group first when there is none (see
-    :func:`initialize_distributed`). The device is ``cuda:LOCAL_RANK`` under
-    NCCL, ``cuda:LOCAL_RANK % cards`` under gloo on the card, and the CPU
-    under ``use_accelerator=False`` (gloo only)."""
-    initialize_distributed(init_file=init_file, backend=backend, use_accelerator=use_accelerator)
+    :func:`initialize_distributed`, which takes the keywords). The device
+    is ``cuda:LOCAL_RANK`` under NCCL, ``cuda:LOCAL_RANK % cards`` under gloo
+    on the card (the rank stands for ``LOCAL_RANK`` under a coordinator),
+    and the CPU under ``use_accelerator=False`` (gloo only)."""
+    initialize_distributed(init_file=init_file, backend=backend, use_accelerator=use_accelerator,
+                           coordinator_address=coordinator_address, num_processes=num_processes,
+                           process_id=process_id, timeout=timeout)
     name = dist.get_backend()
     rank, size = dist.get_rank(), dist.get_world_size()
-    local = _env_int("LOCAL_RANK")
+    local = None if coordinator_address is not None else _env_int("LOCAL_RANK")
     local = rank if local is None else local
     if not use_accelerator:
         if name != "gloo":
@@ -185,10 +245,7 @@ def make_mesh(use_accelerator: bool = True, backend: Optional[str] = None,
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass use_accelerator=False "
                                "to run the mesh on the CPU explicitly")
-        if name == "nccl":
-            device = torch.device("cuda", local)
-        else:
-            device = torch.device("cuda", local % torch.cuda.device_count())
+        device = torch.device("cuda", local % torch.cuda.device_count())
         torch.cuda.set_device(device)
     mesh = DataMesh(group=None, rank=rank, size=size, device=device, backend=name)
     logger.info("Mesh: %s=%d on %s over %s", mesh.axis, size, device, backend_info())

@@ -408,6 +408,8 @@ def test_importing_the_port_loads_no_jax():
         "import gan_deeplearning4j_tpu_torch.harness.mfu\n"
         "import gan_deeplearning4j_tpu_torch.parallel.bench\n"
         "import gan_deeplearning4j_tpu_torch.eval.tune_sweep\n"
+        "import gan_deeplearning4j_tpu_torch.parallel.multihost\n"
+        "import gan_deeplearning4j_tpu_torch.entry\n"
         "import gan_deeplearning4j_tpu_torch as port\n"
         "port.factory\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
