@@ -378,22 +378,36 @@ ad. the multi-host smoke and the entry points (``entry.py``,
    (ad3) ``entry()`` on the card against the CPU within 1e-4 of the largest
    output, and the forward's ms. Each launch's seconds are printed.
    ``--only multihost`` runs (ad) alone.
-ae. the training bench (``gan_deeplearning4j_tpu_torch/bench.py``) and its
-   ledger, each in a thread started after (x1), beside (x2) and (x3)
-   (whose work is in their worker processes), and joined before (y):
-   (ae1) ``python -m gan_deeplearning4j_tpu_torch.bench --config 2
-   --budget 90`` at ``FULL_OPTS`` with ``--json`` and ``--update-baselines``
-   into a directory of its own: exit 0, every line parseable and under
-   1,900 characters, the last on ``gpu``, not degraded, with the card,
-   config 2's value > 0 and its MFU in (0, 1], the baselines written; then
-   ``harness/bench_ledger.py --root`` over that record exits 0; (ae2) the
+ae. the training bench (``gan_deeplearning4j_tpu_torch/bench.py``), in a
+   thread started after (x1), beside (x2) and (x3) (whose work is in their
+   worker processes), and joined before (y): (ae2) the
    eight configs in this process at full shapes and windows
    (128; 32 for WGAN-GP) on a short protocol (``AE2_OPTS``: a warm window,
    two chunks of at least 0.2 s): every value > 0, every MFU in (0, 1],
    the window, captures in warmup and none after, config 1's four
-   variants, configs 4 and 4b on one device. Its seconds (each thread's,
+   variants, configs 4 and 4b on one device. Its seconds (the thread's,
    the join's wait) are printed beside its 90 s budget. ``--only bench``
    runs (ae) alone. A ``phase_done`` line follows each training phase.
+af. the on-card campaign (``gan_deeplearning4j_tpu_torch/campaign.py``,
+   the port of ``scripts/tpu_campaign.sh``) at smoke depth through
+   ``run_campaign``, in a thread of its own started before (v) (its card
+   work is in its own processes) and joined with (ae)'s before (y):
+   the preflight narrowed to the lint gate, the serving smoke with its span
+   trace and that trace's fold; the bench's pass 1 on config 2,
+   ``--config 2 --budget 90`` at ``FULL_OPTS`` with ``--update-baselines``
+   into a baselines file of the phase's own, and pass 2 on config 2; the
+   MFU ceiling at ``--gemm-n 1024 --batches 64``; the sweep at (ac3)'s
+   sizes; the quality run at 20 iterations on (ac3)'s data sizes, its
+   first attempt made to fail; the ledger over the campaign's root. Checked: exit 0, every gate
+   rc 0, every step done, each validator's decision (held again on the
+   records), the bench command's checks on pass 1 (exit 0, every line parseable and
+   under 1,900 characters, the last on ``gpu``, not degraded, with the
+   card, config 2's value > 0 and its MFU in (0, 1], the baselines
+   written), the restore of the failed quality attempt (the files it made
+   gone, the seeded report's bytes back, the other records untouched) and
+   its retry at the next round, ``BENCH_r01.json`` kept and the ledger's
+   exit 0. Its seconds are printed beside its 150 s budget. ``--only
+   campaign`` runs (af) alone.
 
 Every number is printed beside the card's name and power limit. The
 ``kernels`` line lists ``quant_dense`` (the JAX package has no Pallas
@@ -412,6 +426,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import hashlib
 import json
 import os
 import re
@@ -5381,16 +5396,17 @@ def _phase_multihost(card: str, directory: str, started=None) -> dict:
     return out
 
 
-# -- (ae) the training bench and its ledger --------------------------------------
+# -- (ae) the training bench ------------------------------------------------------
 
-#: (ae1) the bench's command at ``FULL_OPTS`` on config 2, inside its own budget
-AE1_ARGS = ["--config", "2", "--budget", "90"]
-#: (ae1) seconds the bench's and the ledger's processes may take
-AE1_TIMEOUT_S, AE1_LEDGER_TIMEOUT_S = 150.0, 60.0
 #: the whole script starts (ae) after (x1), beside (x2) and (x3), whose work is
-#: in their worker processes, and joins it before this phase: (y)'s latency
-#: bars and (x1)'s reserved-memory bound see no (ae) work
+#: in their worker processes, and joins it and (af) before this phase: (y)'s
+#: latency bars and (x1)'s reserved-memory bound see no (ae) work
 AE_JOIN_BEFORE = "fleet"
+#: the phase before which (af)'s thread starts, so that its ~250 s of processes
+#: end inside (v), (w) and (x) and the join waits for nothing. Its card work is in
+#: its own processes: (v)'s and (w)'s checks and (x1)'s reserved-memory bound do
+#: not see it; (v4)'s and (w3)'s recorded times are taken beside its CPU gates
+AF_START_BEFORE = "parallel"
 #: (ae2) the in-process protocol at full shapes and windows: a warm window
 #: (the bench warms the per-dispatch path with two calls), then two chunks of
 #: at least 0.2 s
@@ -5404,24 +5420,11 @@ AE2_MNIST_VARIANTS = ("f32_images_per_sec", "bf16_images_per_sec", "bf16_storage
 AE_BUDGET_S = 90.0
 
 
-def _bench_cli(directory: str) -> dict:
-    """(ae1) The bench's command on config 2 into a directory of its own
-    (its record ``BENCH_r01.json``, its baselines a file there), then the
-    ledger over the record: ``{"row", "failed"}``."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    workdir = os.path.join(directory, "ae1_bench")
-    os.makedirs(workdir, exist_ok=True)
-    record, baselines_path = (os.path.join(workdir, "BENCH_r01.json"),
-                              os.path.join(workdir, "baselines.json"))
-    cmd = [sys.executable, "-m", "gan_deeplearning4j_tpu_torch.bench", *AE1_ARGS,
-           "--json", record, "--update-baselines", "--baselines", baselines_path, "--lock-file", ""]
-    try:
-        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=AE1_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        return {"row": {}, "failed": [f"the bench outlived {AE1_TIMEOUT_S} s"]}
-    failed, lines = [], proc.stdout.strip().splitlines()
-    if proc.returncode != 0:
-        failed.append(f"rc {proc.returncode}: {proc.stderr[-800:]}")
+def _check_bench_pass(lines: list, rc: int, record: str, baselines_path: str) -> tuple:
+    """The checks of the bench's command on config 2 with ``--json
+    record`` and ``--update-baselines --baselines baselines_path``, from its
+    standard output's ``lines`` and exit code: ``(row, failed)``."""
+    failed = [] if rc == 0 else [f"rc {rc}"]
     parsed = []
     for line in lines:
         try:
@@ -5447,20 +5450,14 @@ def _bench_cli(directory: str) -> dict:
     if os.path.exists(baselines_path):
         with open(baselines_path) as fh:
             baselines = json.load(fh)
-    card_meta = baselines.get("_meta", {}).get("card")
-    if baselines.get(full.get("metric")) != row.get("value") or not card_meta:
+    if baselines.get(full.get("metric")) != row.get("value") or not baselines.get("_meta", {}).get(
+            "card"):
         failed.append(f"--update-baselines wrote {baselines}")
-    ledger = subprocess.run([sys.executable, "-m", "gan_deeplearning4j_tpu_torch.harness.bench_ledger",
-                             "--root", workdir], cwd=root, capture_output=True, text=True,
-                            timeout=AE1_LEDGER_TIMEOUT_S)
-    if ledger.returncode != 0 or not ledger.stdout.startswith("train  (baseline r01)"):
-        failed.append(f"the ledger: rc {ledger.returncode}, {ledger.stdout[:200]!r}")
     out = {"lines": len(lines), "max_line_chars": max(map(len, lines), default=0), "row": row,
            "record": {k: full.get(k) for k in (
                "value", "mfu", "peak_flops", "sec_per_iter", "iter_time_jitter", "timed_iters",
-               "device_loop_window", "peak_memory_bytes", "capture_seconds", "truncated")},
-           "ledger_rc": ledger.returncode, "ledger": ledger.stdout.strip().splitlines()[:2]}
-    return {"row": out, "failed": failed}
+               "device_loop_window", "peak_memory_bytes", "capture_seconds", "truncated")}}
+    return out, failed
 
 
 def _bench_configs() -> dict:
@@ -5498,47 +5495,266 @@ def _bench_configs() -> dict:
             "failed": failed}
 
 
-def _start_bench(directory: str) -> dict:
-    """(ae1) and (ae2), each started in a thread of its own: ``{"pool",
-    "t0", "ae1", "ae2"}`` (futures of ``(result, seconds)``);
-    :func:`_join_bench` waits for them, :func:`_phase_bench` reads them."""
-    pool = concurrent.futures.ThreadPoolExecutor(max_workers=2)
-    return {"pool": pool, "t0": time.perf_counter(),
-            "ae1": pool.submit(_timed, _bench_cli, directory),
-            "ae2": pool.submit(_timed, _bench_configs)}
+def _start_bench(directory: str, parts=("ae2", "af")) -> dict:
+    """(ae2) and (af), each started in a thread of its own: ``{part: future
+    of (result, seconds), part + "_pool": its executor}``; :func:`_join_bench`
+    waits for them, :func:`_phase_bench` and :func:`_phase_campaign` read them."""
+    run = {"ae2": _bench_configs, "af": functools.partial(_campaign_smoke, directory)}
+    started = {}
+    for part in parts:
+        pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+        started[part], started[f"{part}_pool"] = pool.submit(_timed, run[part]), pool
+    return started
 
 
 def _join_bench(started: dict) -> float:
-    """Wait for (ae)'s two threads and end the pool: the seconds waited."""
+    """Wait for (ae)'s and (af)'s threads and end their executors: the seconds waited."""
     t0 = time.perf_counter()
-    concurrent.futures.wait([started["ae1"], started["ae2"]])
-    started["pool"].shutdown()
+    for part in ("ae2", "af"):
+        if part in started:
+            concurrent.futures.wait([started[part]])
+            started[f"{part}_pool"].shutdown()
     started["join_wait_s"] = time.perf_counter() - t0
     return started["join_wait_s"]
 
 
 def _phase_bench(directory: str, card: str, started=None) -> dict:
-    """(ae) The training bench on the card: (ae1) its command on config 2 at
-    ``FULL_OPTS`` and the ledger over its record, beside (ae2) the eight
-    configs in this process on a short protocol. In the whole script both
-    start after (x1) and are joined before ``AE_JOIN_BEFORE``; with
-    ``--only bench`` they start here."""
+    """(ae) The training bench on the card: (ae2) the eight configs in this
+    process on a short protocol. In the whole script it starts after (x1)
+    and is joined before ``AE_JOIN_BEFORE``; with ``--only bench`` it
+    starts here."""
     t_phase = time.perf_counter()
     if started is None:
-        started = _start_bench(directory)
+        started = _start_bench(directory, ("ae2",))
     if "join_wait_s" not in started:
         _join_bench(started)
-    (ae1, ae1_s), (ae2, ae2_s) = started["ae1"].result(), started["ae2"].result()
-    print(json.dumps({"phase": "bench_cli", "seconds": ae1_s, **ae1["row"], "card": card}))
+    ae2, ae2_s = started["ae2"].result()
     print(json.dumps({"phase": "bench_configs", "seconds": ae2_s, **ae2["row"], "card": card}))
-    seconds = {"ae1": ae1_s, "ae2": ae2_s, "wall": max(ae1_s, ae2_s),
-               "join_wait": started["join_wait_s"], "in_phase": time.perf_counter() - t_phase}
+    seconds = {"ae2": ae2_s, "join_wait": started["join_wait_s"],
+               "in_phase": time.perf_counter() - t_phase}
     print(json.dumps({"phase": "bench_seconds", **seconds, "budget_s": AE_BUDGET_S,
-                      "within_budget": seconds["wall"] <= AE_BUDGET_S, "card": card}))
-    failed = [f"(ae1) {f}" for f in ae1["failed"]] + [f"(ae2) {f}" for f in ae2["failed"]]
-    if failed:
-        raise AssertionError(f"(ae) failed: {failed}")
-    return {"ae1": ae1, "ae2": ae2, "seconds": seconds}
+                      "within_budget": ae2_s <= AE_BUDGET_S, "card": card}))
+    if ae2["failed"]:
+        raise AssertionError(f"(ae) failed: {[f'(ae2) {f}' for f in ae2['failed']]}")
+    return {"ae2": ae2, "seconds": seconds}
+
+
+# -- (af) the on-card campaign ------------------------------------------------------
+
+#: (af) the preflight: the JAX script's gates 1, 3 and 4 (the lint gate, the
+#: serving smoke with its span trace, the trace's fold), by their index
+AF_GATES = (0, 2, 3)
+#: (af) bench pass 1 on config 2 at ``FULL_OPTS`` inside a 90 s budget; pass 2 the same
+AF_BENCH_ARGS = (("--config", "2"), ("--budget", "90"), ("--lock-file", ""))
+#: (af) the MFU ceiling's sizes; the sweep runs at (ac3)'s
+AF_MFU_ARGS = (("--gemm-n", "1024"), ("--batches", "64"))
+#: (af) the quality run: 20 iterations on (ac3)'s data and quick-FID sizes, FID
+#: on 2,048 samples, a depth cut that keeps the whole script inside its limit
+AF_QUALITY_ARGS = (("--iterations", "20"), ("--num-train", "2000"), ("--num-test", "500"),
+                   ("--fid-samples", "2048"), ("--select-samples", "512"))
+#: (af) the sweep's arms at (ac3)'s sizes: two grid arms and the four levers
+AF_SWEEP_ARMS = 6
+#: (af) the campaign's deadline and the seconds between its rounds
+AF_CAMPAIGN_BUDGET_S, AF_RETRY_S = 600.0, 0.0
+#: (af)'s commands run at a lower CPU priority: beside (v), (w) and (x) its
+#: processes yield the host's cores to theirs
+AF_NICE = ("nice", "-n", "10")
+#: (af) the seeded report the failed quality attempt must leave behind
+AF_SEEDED_QUALITY = b'{"platform": "seeded"}'
+#: (af)'s budget in seconds, recorded beside its time
+AF_BUDGET_S = 150.0
+
+
+def _with_flags(argv: tuple, pairs) -> tuple:
+    """``argv`` with each ``(flag, value)`` of ``pairs`` set: replaced where
+    the flag is, appended where it is not."""
+    argv = list(argv)
+    for flag, value in pairs:
+        if flag in argv:
+            argv[argv.index(flag) + 1] = value
+        else:
+            argv += [flag, value]
+    return tuple(argv)
+
+
+def _campaign_tables(root: str, seen: dict) -> tuple:
+    """(af)'s gates and steps: the package's tables at smoke depth, every
+    command at ``AF_NICE``'s priority. The
+    sweep's validator records the artifacts' digest once it passes, the
+    quality run's rejects its first attempt (after recording what it
+    decided and the digest then): both into ``seen``."""
+    from gan_deeplearning4j_tpu_torch import campaign
+
+    gates = tuple(campaign.PREFLIGHT[i] for i in AF_GATES)
+    steps = {s.name: s for s in campaign.CARD_STEPS}
+    baselines = os.path.join(root, "baselines.json")
+    artifacts = os.path.join(root, campaign.ARTIFACTS)
+    pass1, pass2 = steps["bench"].commands
+    bench_args = (*AF_BENCH_ARGS, ("--baselines", baselines))
+
+    def sweep_ok(r):
+        ok = campaign.sweep_ok(r, min_arms=AF_SWEEP_ARMS)
+        if ok:
+            seen["before_quality"] = _tree_digest(artifacts)
+        return ok
+
+    def quality_ok(r):
+        decided = campaign.quality_ok(r)
+        seen.setdefault("quality_decisions", []).append(decided)
+        if len(seen["quality_decisions"]) == 1:
+            seen["failed_attempt"] = _tree_digest(artifacts)
+            return False  # the attempt made to fail
+        return decided
+
+    sweep = steps["tune"].commands[0]
+    smoke_steps = (
+        dataclasses.replace(
+            steps["bench"],
+            commands=(dataclasses.replace(pass1, argv=_with_flags(pass1.argv, bench_args),
+                                          stdout="af_bench_pass1.out"),
+                      dataclasses.replace(pass2, argv=_with_flags(pass2.argv, bench_args))),
+            validate=functools.partial(campaign.bench_records_ok, n_results=1),
+            restore=(*campaign.BENCH_RECORDS, baselines)),
+        dataclasses.replace(steps["ceiling"], commands=tuple(
+            dataclasses.replace(g, argv=_with_flags(g.argv, AF_MFU_ARGS))
+            for g in steps["ceiling"].commands)),
+        dataclasses.replace(steps["tune"], commands=(dataclasses.replace(
+            sweep, argv=_with_flags(sweep.argv, zip(AC3_ARGS[::2], AC3_ARGS[1::2]))),),
+            validate=sweep_ok),
+        dataclasses.replace(steps["quality"], commands=tuple(
+            dataclasses.replace(g, argv=_with_flags(g.argv, AF_QUALITY_ARGS))
+            for g in steps["quality"].commands), validate=quality_ok))
+    return tuple(_niced(g) for g in gates), tuple(
+        dataclasses.replace(step, commands=tuple(_niced(g) for g in step.commands))
+        for step in smoke_steps)
+
+
+def _niced(gate):
+    """``gate`` run at ``AF_NICE``'s priority."""
+    return dataclasses.replace(gate, argv=(*AF_NICE, *gate.argv))
+
+
+def _tree_digest(path: str) -> dict:
+    """``{relative path: sha256}`` of every file under ``path``."""
+    return {os.path.relpath(os.path.join(d, n), path):
+            hashlib.sha256(_file_bytes(os.path.join(d, n))).hexdigest()
+            for d, _, names in os.walk(path) for n in names}
+
+
+def _file_bytes(path: str):
+    """The bytes of ``path``, None when it is absent."""
+    if not os.path.exists(path):
+        return None
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
+def _campaign_smoke(directory: str) -> dict:
+    """(af) ``run_campaign`` at smoke depth into a root of its own:
+    ``{"row", "failed"}``."""
+    from gan_deeplearning4j_tpu_torch import campaign
+
+    root = os.path.join(directory, "af_campaign")
+    artifacts = os.path.join(root, campaign.ARTIFACTS)
+    os.makedirs(artifacts, exist_ok=True)
+    with open(os.path.join(root, campaign.QUALITY_RECORD), "wb") as fh:
+        fh.write(AF_SEEDED_QUALITY)
+    seen, rows, probes = {}, [], []
+
+    def probe():
+        # the second round's probe sees what the failed quality attempt left
+        if probes:
+            seen["after_restore"] = _tree_digest(artifacts)
+        probes.append(campaign.card_probe())
+        return probes[-1]
+
+    gates, steps = _campaign_tables(root, seen)
+    t0 = time.perf_counter()
+    rc = campaign.run_campaign(root, gates, steps, AF_CAMPAIGN_BUDGET_S, probe,
+                               ledger=_niced(campaign.LEDGER), retry_s=AF_RETRY_S,
+                               emit=rows.append)
+    seconds = time.perf_counter() - t0
+    failed = [] if rc == 0 else [f"the campaign exited {rc}"]
+    summary = rows[-1] if rows else {}
+    gate_rows = [r for r in rows if "gate" in r]
+    step_rows = [r for r in rows if "step" in r]
+    if [(r["gate"], r["rc"]) for r in gate_rows] != [(g.name, 0) for g in gates] + [
+            (campaign.LEDGER.name, 0)]:
+        failed.append(f"gates {[(r['gate'], r['rc']) for r in gate_rows]}")
+    if summary.get("not_done") != [] or any(
+            not v["done"] for v in summary.get("steps", {}).values()):
+        failed.append(f"steps not done: {summary.get('not_done')}")
+    attempts = [(r["step"], r["round"], r["done"]) for r in step_rows]
+    if attempts != [("bench", 1, True), ("ceiling", 1, True), ("tune", 1, True),
+                    ("quality", 1, False), ("quality", 2, True)]:
+        failed.append(f"attempts {attempts}")
+    # each validator's decision, held again on the records the campaign left
+    decisions = {"bench": campaign.bench_records_ok(root, n_results=1),
+                 "ceiling": campaign.mfu_ok(root),
+                 "tune": campaign.sweep_ok(root, min_arms=AF_SWEEP_ARMS),
+                 "quality": campaign.quality_ok(root),
+                 "quality_attempts": seen.get("quality_decisions")}
+    if not all(decisions[k] for k in ("bench", "ceiling", "tune", "quality")) or \
+            decisions["quality_attempts"] != [True, True]:
+        failed.append(f"validators {decisions}")
+    # the bench command's checks on pass 1
+    bench_row = next((r for r in step_rows if r["step"] == "bench"), {"rcs": [None]})
+    out = _file_bytes(os.path.join(root, "af_bench_pass1.out")) or b""
+    lines = out.decode().strip().splitlines()
+    pass1, pass1_failed = _check_bench_pass(
+        lines, bench_row["rcs"][0], os.path.join(root, campaign.BENCH_RECORDS[0]),
+        os.path.join(root, "baselines.json"))
+    failed += [f"pass 1: {f}" for f in pass1_failed]
+    # the restore of the failed quality attempt, seen by the next round's probe
+    before, made, after = (seen.get(k, {}) for k in ("before_quality", "failed_attempt",
+                                                     "after_restore"))
+    report = next((r.get("restore") for r in step_rows
+                   if r["step"] == "quality" and not r["done"]), None) or {}
+    new_files = sorted(set(made) - set(before))
+    restore = {"restore": report, "made": new_files,
+               "seeded": before.get("quality_run.json") == hashlib.sha256(
+                   AF_SEEDED_QUALITY).hexdigest(),
+               "equal_after": bool(before) and before == after}
+    if not (restore["equal_after"] and restore["seeded"] and new_files
+            and made.get("quality_run.json") != before.get("quality_run.json")
+            and report.get("removed", 0) >= len(new_files) and report.get("restored", 0) >= 1):
+        failed.append(f"the failed quality attempt's restore {restore}")
+    kept_bytes = _file_bytes(os.path.join(root, "BENCH_r01.json"))
+    kept = kept_bytes is not None and kept_bytes == _file_bytes(
+        os.path.join(root, campaign.BENCH_RECORDS[1]))
+    ledger_log = (_file_bytes(os.path.join(root, campaign.LEDGER.log)) or b"").decode()
+    if not kept or not ledger_log.startswith("train  (baseline r01)"):
+        failed.append(f"BENCH_r01.json kept {kept}, the ledger {ledger_log[:200]!r}")
+    return {"row": {"rc": rc, "seconds": seconds, "gates": gate_rows, "steps": step_rows,
+                    "quality_flags": summary.get("quality_flags"), "decisions": decisions,
+                    "pass1": pass1, "restore": restore,
+                    "ledger": ledger_log.strip().splitlines()[:2]},
+            "failed": failed}
+
+
+def _phase_campaign(directory: str, card: str, started=None) -> dict:
+    """(af) The on-card campaign at smoke depth. In the whole script it runs
+    in a thread started before ``AF_START_BEFORE`` and joined before
+    ``AE_JOIN_BEFORE``; with ``--only campaign`` it starts here."""
+    t_phase = time.perf_counter()
+    if started is None:
+        started = _start_bench(directory, ("af",))
+    if "join_wait_s" not in started:
+        _join_bench(started)
+    af, af_s = started["af"].result()
+    row = af["row"]
+    print(json.dumps({"phase": "campaign_gates", "gates": row["gates"], "card": card}))
+    for step in row["steps"]:
+        print(json.dumps({"phase": "campaign_step", **step}))
+    print(json.dumps({"phase": "campaign", **{k: v for k, v in row.items()
+                                              if k not in ("gates", "steps")}, "card": card}))
+    seconds = {"af": af_s, "join_wait": started["join_wait_s"],
+               "in_phase": time.perf_counter() - t_phase}
+    print(json.dumps({"phase": "campaign_seconds", **seconds, "budget_s": AF_BUDGET_S,
+                      "within_budget": af_s <= AF_BUDGET_S, "card": card}))
+    if af["failed"]:
+        raise AssertionError(f"(af) failed: {af['failed']}")
+    return {"af": af, "seconds": seconds}
 
 
 #: the phases ``--only`` can run by themselves: (x, y, directory, card); "reload"
@@ -5556,7 +5772,8 @@ _TRAINING_ONLY = {"windows": lambda *a: _phase_windows(*a),
                   "measurement": lambda *a: _phase_measurement(*a),
                   "calibration": lambda *a: _phase_calibration(*a),
                   "multihost": lambda x, y, d, card: _phase_multihost(card, d),
-                  "bench": lambda x, y, d, card: _phase_bench(d, card)}
+                  "bench": lambda x, y, d, card: _phase_bench(d, card),
+                  "campaign": lambda x, y, d, card: _phase_campaign(d, card)}
 
 
 def _int8_variant(directory: str) -> str:
@@ -5657,7 +5874,7 @@ def main(argv=None) -> int:
         families, failed = {}, []
         analysis = None  # (aa1)'s and (aa2)'s processes, started before AA_START_BEFORE
         multihost = None  # (ad1)'s and (ad2)'s launches, started before AD_START_BEFORE
-        bench_started: dict = {}  # (ae)'s threads, started beside (x2) and (x3)
+        bench_started: dict = {}  # (ae)'s and (af)'s threads, started beside (x2) and (x3)
         for key, run in (("card_vs_cpu", lambda: _phase_family_card_vs_cpu(card)),
                          ("resume", lambda: _phase_family_resume(directory, card)),
                          ("run_publish", lambda: _phase_family_run_publish(directory, card)),
@@ -5683,17 +5900,22 @@ def main(argv=None) -> int:
                          ("eval", lambda: _phase_eval(x, y, directory, card)),
                          ("resilience", lambda: _phase_resilience(
                              x, y, directory, card,
-                             before_drills=lambda: bench_started.update(_start_bench(directory)))),
+                             before_drills=lambda: bench_started.update(
+                                 _start_bench(directory, ("ae2",))))),
                          ("fleet", lambda: _phase_fleet(x, y, directory, card)),
                          ("replicas", lambda: _phase_replicas(x, y, directory, int8_dir, card)),
                          ("analysis", lambda: _phase_analysis(card, analysis)),
                          ("measurement", lambda: _phase_measurement(x, y, directory, card, http)),
                          ("calibration", lambda: _phase_calibration(x, y, directory, card)),
-                         ("bench", lambda: _phase_bench(directory, card, bench_started or None))):
+                         ("bench", lambda: _phase_bench(directory, card, bench_started or None)),
+                         ("campaign",
+                          lambda: _phase_campaign(directory, card, bench_started or None))):
             if key == AA_START_BEFORE:
                 analysis = _start_analysis()
             if key == AD_START_BEFORE:
                 multihost = _start_multihost(directory)
+            if key == AF_START_BEFORE:
+                bench_started.update(_start_bench(directory, ("af",)))
             if key == AE_JOIN_BEFORE and bench_started:
                 _join_bench(bench_started)
             t0 = time.perf_counter()
@@ -5708,7 +5930,7 @@ def main(argv=None) -> int:
     if failed:
         print(f"chip_smoke: family / bf16 / window / int8 / serving / zoo / parallel / eval / "
               f"resilience / fleet / replicas / analysis / measurement / calibration / "
-              f"multihost / bench phases failed: {failed}",
+              f"multihost / bench / campaign phases failed: {failed}",
               file=sys.stderr)
         return 1
     top = engine.buckets[-1]

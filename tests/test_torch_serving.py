@@ -358,6 +358,7 @@ def test_importing_the_port_loads_no_jax():
         "import gan_deeplearning4j_tpu_torch.zoo.drill\n"
         "import gan_deeplearning4j_tpu_torch.quant\n"
         "import gan_deeplearning4j_tpu_torch.quant.bench\n"
+        "import gan_deeplearning4j_tpu_torch.campaign\n"
         "import gan_deeplearning4j_tpu_torch.deploy\n"
         "import gan_deeplearning4j_tpu_torch.eval.fid\n"
         "import gan_deeplearning4j_tpu_torch.eval.quality\n"
