@@ -39,16 +39,18 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fma
 
 #: the library's C entry points: (argtypes, restype)
 _ENTRY_POINTS = {
-    # (w_q, w_scale, b, k, m, inv_act_scale, act_scale, route, strip,
-    #  cluster, k_chunk, box_k, boxes, &err) -> layer handle or NULL
+    # (w_q, w_scale, b, b's dtype code, k, m, W_q's row length, act_scale,
+    #  route, strip, cluster, k_chunk, k_stage, &err) -> layer handle or NULL
     "layer_new": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
                   ctypes.c_void_p),
     "layer_free": ([ctypes.c_void_p], None),
-    # (layer, x, y, n, nt, row_tiles, smem_bytes, stream) -> cudaError_t
+    # (layer, x, y, n, x's dtype code, inv_act_scale, y in x's dtype, nt,
+    #  row_tiles, smem_bytes, stream) -> cudaError_t
     "run": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
+             ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p], ctypes.c_int),
 }
 
 _lock = threading.Lock()

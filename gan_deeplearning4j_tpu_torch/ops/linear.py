@@ -125,14 +125,16 @@ def quantize_activations(x, act_scale: float):
 
 
 def quant_dense_plain(x, w_q, w_scale, b, act_scale: float):
-    """The reference's int8 dense in torch ops, on any device and dtype:
-    ``x_q = int8(clip(round(x * (1.0 / act_scale)), ±127))`` (round half to
-    even), an exact integer product (int32 on the CPU; float64 on the card,
-    exact below 2^53, since CUDA has no integer matmul), one dequantize by
-    ``w_scale * act_scale`` in float32, a cast to x's dtype, then ``+ b``.
+    """The reference's int8 dense in torch ops, on any device:
+    ``x_q = int8(clip(round(x * (1.0 / act_scale)), ±127))`` in x's dtype
+    (round half to even), an exact integer product over x's last axis
+    (int32 on the CPU; float64 on the card, exact below 2^53, since CUDA has
+    no integer matmul), one dequantize by ``w_scale * act_scale`` in
+    float32, a cast to x's dtype, then ``+ b`` under type promotion (x's
+    dtype without b or with a b of x's dtype, else float32).
 
     Args:
-      x: (batch, in) float activations.
+      x: (..., in) float activations, any rank >= 1.
       w_q: (in, out) int8 kernel.
       w_scale: (out,) per-output-channel weight scales.
       b: optional (out,) bias, added after the dequantize.
@@ -151,15 +153,32 @@ def quant_dense_plain(x, w_q, w_scale, b, act_scale: float):
     return y
 
 
+#: the activation dtypes ``quant_dense`` takes (the reference's floats with
+#: x64 off), with the kernel's code for each; b may be any of them too
+QUANT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _check_dtype(what: str, t) -> None:
+    if t.dtype not in QUANT_DTYPES:
+        raise ValueError(f"quant_dense: {what} must be float32, bfloat16 or float16, got {t.dtype}")
+
+
 def quant_dense(x, w_q, w_scale, b, act_scale: float):
     """Dequant-at-matmul int8 dense: float rows in, float rows out.
 
-    On a CPU tensor, :func:`quant_dense_plain`. On a CUDA tensor, one
-    launch of the hand-written kernel (``csrc/quant_dense.cu``), equal to
-    the plain version bit for bit; it takes float32 x (what int8 bundles
-    serve) and raises on anything it does not take, with no fallback.
-    Arguments as for :func:`quant_dense_plain`."""
+    Takes what the reference takes: x of any rank >= 1 in float32, bfloat16
+    or float16 (any other dtype raises ``ValueError``), any in, out and
+    number of rows, b of any of those dtypes or None; the output has x's
+    leading shape and the promoted dtype. On a CPU tensor,
+    :func:`quant_dense_plain`. On a CUDA tensor, one launch of the
+    hand-written kernel (``csrc/quant_dense.cu``) per block of at most
+    65,535 row tiles, equal to the plain version bit for bit, with no
+    fallback. Past |acc| = 2^31 (from in = 133,145 with every code ±127)
+    the reference's int32 sum wraps; the plain version on the card sums in
+    float64 and does not, so the two agree only below it. Arguments as for
+    :func:`quant_dense_plain`."""
     if not x.is_cuda:
+        _check_dtype("x", x)
         return quant_dense_plain(x, w_q, w_scale, b, act_scale)
     return _quant_dense_cuda(x, w_q, w_scale, b, act_scale)
 
@@ -171,6 +190,11 @@ _SMEM_LIMIT = 232448
 _MAX_STRIP = 64
 #: largest cluster that every sm_90 part schedules (the portable limit)
 _MAX_CLUSTER = 8
+#: most K rows a CTA lands in shared memory at once (one TMA box's limit):
+#: a stage of any row tile fits in 94 KB, two CTAs an SM
+_MAX_STAGE = 256
+#: most row tiles a launch covers (grid y's limit)
+_MAX_ROW_TILES = 65535
 #: 8-row groups of the largest row tile (a 128-row tile of 1152 → 1024
 #: needs 126 KB of shared memory, one CTA an SM, and ran 2.3x slower than
 #: two 64-row tiles on the H100), and the CTAs a plan keeps in flight
@@ -180,25 +204,31 @@ _MAX_NT, _MIN_CTAS = 8, 128
 
 @dataclasses.dataclass(frozen=True)
 class QuantDensePlan:
-    """How one ``quant_dense`` launch splits its work (``csrc/quant_dense.cu``).
+    """How ``quant_dense`` splits its work (``csrc/quant_dense.cu``).
 
     A cluster of ``cluster`` CTAs owns one ``strip`` of output columns; CTA
     ``r`` of it takes rows ``[r * k_chunk, min(k, (r + 1) * k_chunk))`` of
-    W_q. ``route`` is how the W_q tile lands in shared memory: ``"tma"`` (a
-    2D tensor copy of ``boxes`` boxes of ``box_k`` rows, where N is a
-    multiple of 16 bytes) or ``"bulk"`` (one bulk copy of the chunk's
-    full-width rows). A row tile is ``8 * nt`` rows of x; ``row_tiles`` of
-    them cover n."""
+    W_q, ``k_stage`` rows at a time through the same shared memory
+    (``stages`` of them in a full chunk). ``route`` is how a W_q tile lands
+    in shared memory: ``"tma"`` (a 2D tensor copy of ``k_stage`` rows; W_q's
+    rows must be a multiple of 16 bytes, so a ragged out > 64 is read from a
+    zero-padded copy of ``width`` columns, ``pad_bytes`` more than W_q) or
+    ``"bulk"`` (one bulk copy of the stage's full-width rows, out <= 64). A
+    row tile is ``8 * nt`` rows of x; ``row_tiles`` of them cover n, in
+    ``launches`` launches of at most 65,535 (:func:`quant_dense_row_blocks`)."""
 
     route: str
+    width: int
+    pad_bytes: int
     strip: int
     strips: int
     cluster: int
     k_chunk: int
-    box_k: int
-    boxes: int
+    k_stage: int
+    stages: int
     nt: int
     row_tiles: int
+    launches: int
     smem_bytes: int
 
     @property
@@ -210,18 +240,17 @@ def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
-def _smem_bytes(route: str, strip: int, m: int, k_chunk: int, box_k: int, boxes: int, nt: int,
-                cluster: int) -> int:
+def _smem_bytes(route: str, strip: int, width: int, k_stage: int, nt: int, cluster: int) -> int:
     """Shared memory of one CTA, laid out as ``csrc/quant_dense.cu::layout``
-    lays it out (the kernel refuses a launch whose plan disagrees): the
-    landed W_q tile, its k-contiguous transpose, x's codes, the tile's int32
-    partial sums (rows padded by 4), each cluster rank's partial sums of
-    this CTA's slice of the outputs, the strip's scales and biases, and the
-    mbarrier. The code tiles' rows are padded to 12 words mod 32 so that a
-    warp's fragment loads hit 32 different banks."""
+    lays it out (the kernel refuses a launch whose plan disagrees): one
+    stage's landed W_q tile, its k-contiguous transpose, x's codes, the
+    tile's int32 partial sums (rows padded by 4), each cluster rank's partial
+    sums of this CTA's slice of the outputs, the strip's scales and biases,
+    and the mbarrier. The code tiles' rows are padded to 12 words mod 32 so
+    that a warp's fragment loads hit 32 different banks."""
     rt = 8 * nt
-    w = boxes * box_k * strip if route == "tma" else k_chunk * m + strip
-    ld = k_chunk // 4 + ((12 - k_chunk // 4) & 31)
+    w = k_stage * strip if route == "tma" else k_stage * width + strip
+    ld = k_stage // 4 + ((12 - k_stage // 4) & 31)
     slice_ = _round_up(-(-rt * strip // cluster), 4)
     parts = (w, strip * ld * 4, rt * ld * 4, rt * (strip + 4) * 4, slice_ * cluster * 4, 2 * strip * 4)
     return sum(_round_up(b, 128) for b in parts) + 16
@@ -229,43 +258,45 @@ def _smem_bytes(route: str, strip: int, m: int, k_chunk: int, box_k: int, boxes:
 
 def quant_dense_plan(n: int, k: int, m: int) -> QuantDensePlan:
     """The launch plan of the ``quant_dense`` kernel for x (n, k) and W_q
-    (k, m). Raises ``ValueError`` for a shape the kernel does not take."""
+    (k, m): every positive shape. Raises ``ValueError`` for another."""
     if n < 1 or k < 1 or m < 1:
         raise ValueError(f"quant_dense plan: n={n}, in={k}, out={m} must be positive")
-    route = "tma" if m % 16 == 0 else "bulk"
-    if route == "bulk" and m > _MAX_STRIP:
-        raise ValueError(
-            f"quant_dense kernel: out={m} is neither a multiple of 16 (the TMA route) nor at most "
-            f"{_MAX_STRIP} (one strip of full-width rows): ROADMAP.md queue 1, 'Quantization'")
+    route = "tma" if m % 16 == 0 or m > _MAX_STRIP else "bulk"
+    width = _round_up(m, 16) if route == "tma" else m
     # 16, 32 or 64 features: a warp's 16-feature tile stays the same across
-    # its row tiles; TMA strips lie inside N, a bulk strip holds all of it
+    # its row tiles; TMA strips lie inside the width, a bulk strip holds all of it
     if route == "tma":
-        strip = max(s for s in (16, 32, _MAX_STRIP) if s <= m)
+        strip = max(s for s in (16, 32, _MAX_STRIP) if s <= width)
     else:
         strip = min(s for s in (16, 32, _MAX_STRIP) if s >= m)
     cluster = min(_MAX_CLUSTER, -(-k // 32))
     k_chunk = _round_up(-(-k // cluster), 32)
     cluster = -(-k // k_chunk)  # no empty chunk
-    box_k = min(k_chunk, 256) if route == "tma" else 0
-    boxes = -(-k_chunk // box_k) if route == "tma" else 0
+    stages = -(-k_chunk // _MAX_STAGE)
+    k_stage = _round_up(-(-k_chunk // stages), 32)
     strips = -(-m // strip)
     # the smallest row tile of 8, 16, 32 or 64 rows that holds n, halved
-    # while that leaves fewer than _MIN_CTAS CTAs in flight or needs more
-    # shared memory than a block has
+    # while that leaves fewer than _MIN_CTAS CTAs in flight
     nt = 1
     while 8 * nt < min(n, 8 * _MAX_NT):
         nt *= 2
-    while nt > 1 and (strips * cluster * -(-n // (8 * nt)) < _MIN_CTAS or _smem_bytes(
-            route, strip, m, k_chunk, box_k, boxes, nt, cluster) > _SMEM_LIMIT):
+    while nt > 1 and strips * cluster * -(-n // (8 * nt)) < _MIN_CTAS:
         nt //= 2
-    smem = _smem_bytes(route, strip, m, k_chunk, box_k, boxes, nt, cluster)
+    smem = _smem_bytes(route, strip, width, k_stage, nt, cluster)
+    if smem > _SMEM_LIMIT:  # no stage of at most _MAX_STAGE rows comes near
+        raise ValueError(f"quant_dense kernel: in={k}, out={m} needs {smem} bytes of shared memory")
     row_tiles = -(-n // (8 * nt))
-    if smem > _SMEM_LIMIT or row_tiles > 65535:
-        raise ValueError(f"quant_dense kernel: n={n}, in={k}, out={m} needs {smem} bytes of shared "
-                         f"memory or {row_tiles} row tiles: ROADMAP.md queue 1, 'Quantization'")
-    return QuantDensePlan(route=route, strip=strip, strips=strips, cluster=cluster,
-                          k_chunk=k_chunk, box_k=box_k, boxes=boxes, nt=nt, row_tiles=row_tiles,
-                          smem_bytes=smem)
+    return QuantDensePlan(route=route, width=width, pad_bytes=k * (width - m), strip=strip,
+                          strips=strips, cluster=cluster, k_chunk=k_chunk, k_stage=k_stage,
+                          stages=stages, nt=nt, row_tiles=row_tiles,
+                          launches=-(-row_tiles // _MAX_ROW_TILES), smem_bytes=smem)
+
+
+def quant_dense_row_blocks(n: int, nt: int) -> list:
+    """``[(first row, rows, row tiles), ...]``: the launches that cover n rows
+    in row tiles of ``8 * nt``, each of at most 65,535 tiles (grid y)."""
+    per = _MAX_ROW_TILES * 8 * nt
+    return [(r0, min(per, n - r0), -(-min(per, n - r0) // (8 * nt))) for r0 in range(0, n, per)]
 
 
 _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
@@ -277,50 +308,80 @@ def _current_stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def quant_dense_operands(w_q, w_scale, b):
+    """One layer's operands as the kernel reads them, with its plan at one
+    row: ``(w, w_scale, b, plan)``. W_q is used as it is where it is
+    contiguous, 16-byte aligned and of a width the plan reads in place;
+    otherwise it is copied once, contiguous and aligned (a fresh
+    allocation), zero-padded to ``plan.width`` columns where the plan pads.
+    w_scale becomes float32 and b contiguous, copied only where needed. The
+    caller's tensors are never changed. Raises ``ValueError`` for operands
+    the reference does not take."""
+    if w_q.dim() != 2 or w_q.dtype != torch.int8:
+        raise ValueError(f"quant_dense: W_q must be a 2-D int8 (in, out), got {w_q.dtype} "
+                         f"{tuple(w_q.shape)}")
+    k, m = w_q.shape
+    if not w_scale.is_floating_point() or tuple(w_scale.shape) != (m,):
+        raise ValueError(f"quant_dense: w_scale must be a float ({m},), got {w_scale.dtype} "
+                         f"{tuple(w_scale.shape)}")
+    if b is not None:
+        _check_dtype("b", b)
+        if tuple(b.shape) != (m,):
+            raise ValueError(f"quant_dense: b must be ({m},), got {tuple(b.shape)}")
+    if any(t.device != w_q.device for t in (w_scale,) + (() if b is None else (b,))):
+        raise ValueError("quant_dense: every operand must be on x's device")
+    plan = quant_dense_plan(1, k, m)
+    w = w_q
+    if plan.width != m:
+        w = torch.zeros((k, plan.width), dtype=torch.int8, device=w_q.device)
+        w[:, :m] = w_q
+    elif not w_q.is_contiguous() or w_q.data_ptr() % 16:
+        w = w_q.clone(memory_format=torch.contiguous_format)
+    return w, w_scale.to(torch.float32).contiguous(), None if b is None else b.contiguous(), plan
+
+
 class _PreparedQuantDense:
-    """One layer's operands checked once for the kernel, with what every
-    launch reuses: the launch plan per n, the TMA tensor map and the C
-    entry point (held by the native layer handle). Per call only x is
-    checked: its dtype and shape by ``_quant_dense_cuda``, its device and
-    contiguity here."""
+    """One layer's operands made ready for the kernel once
+    (:func:`quant_dense_operands`), with what every launch reuses: the
+    launch blocks per n, the reciprocal per x dtype, the TMA tensor map and
+    the C entry point (held by the native layer handle). Per call only x is
+    checked: its dtype and shape by ``_quant_dense_cuda``, its device here.
+    Where W_q was copied, the copy is what the kernel reads: a write into
+    the caller's W_q after the first call is not seen (serving never writes
+    a bundle's params in place)."""
 
     def __init__(self, w_q, w_scale, b, act_scale: float):
-        if w_q.dim() != 2:
-            raise ValueError(f"quant_dense: W_q must be 2-D, got {tuple(w_q.shape)}")
-        k, m = w_q.shape
-        if w_q.dtype != torch.int8 or w_scale.dtype != torch.float32 or tuple(w_scale.shape) != (m,):
-            raise ValueError(f"quant_dense: W_q must be int8 and w_scale float32 ({m},), got "
-                             f"{w_q.dtype} and {w_scale.dtype} {tuple(w_scale.shape)}")
-        if b is not None and (b.dtype != torch.float32 or tuple(b.shape) != (m,)):
-            raise ValueError(f"quant_dense: b must be float32 ({m},), got {b.dtype} {tuple(b.shape)}")
-        tensors = (w_q, w_scale) + (() if b is None else (b,))
-        if any(t.device != w_q.device for t in tensors):
-            raise ValueError("quant_dense: every operand must be on x's device")
-        if not all(t.is_contiguous() for t in tensors):
-            raise ValueError("quant_dense: the kernel takes contiguous operands")
-        if w_q.data_ptr() % 16:
-            raise ValueError("quant_dense: the kernel's copies need W_q's storage 16-byte aligned")
+        w, scale, bias, plan = quant_dense_operands(w_q, w_scale, b)
         if not w_q.is_cuda:
             raise ValueError("quant_dense: every operand must be on x's device")
+        if torch.cuda.is_current_stream_capturing() and (
+                w is not w_q or scale is not w_scale or bias is not b):
+            raise RuntimeError("quant_dense: a layer whose operands need a copy must first run "
+                               "outside a CUDA graph capture (an engine's warmup does)")
+        k, m = w_q.shape
         self.k, self.m = k, m
         self.device = w_q.device
         self.w_ptr = w_q.data_ptr()
         self.w_ref = weakref.ref(w_q)
         self.w_scale, self.b, self.act_scale = w_scale, b, act_scale
-        plan = quant_dense_plan(1, k, m)
-        self._plans = {}  # n -> (nt, row_tiles, smem bytes)
+        self.b_dtype = None if b is None else b.dtype
+        self._held = (w, scale, bias)  # the memory the kernel reads
+        # the reciprocal as quantize_activations rounds it, per x dtype
+        self._inv = {dt: float(torch.full((), 1.0 / act_scale, dtype=dt)) for dt in QUANT_DTYPES}
+        self._blocks = {}  # n -> (nt, smem bytes, row blocks)
 
         from gan_deeplearning4j_tpu_torch.ops import _native
 
         native = _native.quant_dense()
         err = ctypes.c_int(0)
         with torch.cuda.device(self.device):
-            # ctypes rounds 1.0 / act_scale (taken in Python double) and
-            # act_scale to float32, as the reference's weak typing does
+            # ctypes rounds act_scale to float32, as the reference's weak
+            # typing does
             handle = native.layer_new(
-                self.w_ptr, w_scale.data_ptr(), 0 if b is None else b.data_ptr(), k, m,
-                1.0 / act_scale, act_scale, 0 if plan.route == "tma" else 1, plan.strip,
-                plan.cluster, plan.k_chunk, plan.box_k, plan.boxes, ctypes.byref(err))
+                w.data_ptr(), scale.data_ptr(), 0 if bias is None else bias.data_ptr(),
+                QUANT_DTYPES[bias.dtype] if bias is not None else 0, k, m, plan.width, act_scale,
+                0 if plan.route == "tma" else 1, plan.strip, plan.cluster, plan.k_chunk,
+                plan.k_stage, ctypes.byref(err))
         if not handle:
             raise RuntimeError(f"quant_dense: the layer's launch state was refused: CUDA error "
                                f"{err.value} (in={k}, out={m}, plan {plan})")
@@ -338,21 +399,29 @@ class _PreparedQuantDense:
                 return self(x)
         if x.device != self.device:
             raise ValueError("quant_dense: every operand must be on x's device")
-        if not x.is_contiguous():
-            raise ValueError("quant_dense: the kernel takes contiguous operands")
-        n = x.shape[0]
-        y = x.new_empty((n, self.m))  # float32 on x's device, both checked
+        out_dtype = x.dtype if self.b_dtype in (None, x.dtype) else torch.float32
+        y = torch.empty(x.shape[:-1] + (self.m,), dtype=out_dtype, device=x.device)
+        rows = x.reshape(-1, self.k) if x.is_contiguous() else x.contiguous().view(-1, self.k)
+        n = rows.shape[0]
         if n == 0:
             return y
-        launch = self._plans.get(n)
+        launch = self._blocks.get(n)
         if launch is None:
             plan = quant_dense_plan(n, self.k, self.m)
-            launch = self._plans[n] = (plan.nt, plan.row_tiles, plan.smem_bytes)
-        err = self._run(self._handle, x.data_ptr(), y.data_ptr(), n, *launch, _current_stream(self.device))
-        if err != 0:
-            raise RuntimeError(f"quant_dense kernel launch failed: CUDA error {err} "
-                               f"(n={n}, in={self.k}, out={self.m})")
-        KERNEL_LAUNCHES["quant_dense"] += 1
+            launch = self._blocks[n] = (plan.nt, plan.smem_bytes, quant_dense_row_blocks(n, plan.nt))
+        nt, smem = launch[0], launch[1]
+        x_ptr, y_ptr = rows.data_ptr(), y.data_ptr()
+        x_row, y_row = self.k * rows.element_size(), self.m * y.element_size()
+        xtype, inv = QUANT_DTYPES[x.dtype], self._inv[x.dtype]
+        out_x = int(out_dtype == x.dtype)
+        stream = _current_stream(self.device)
+        for r0, count, tiles in launch[2]:
+            err = self._run(self._handle, x_ptr + r0 * x_row, y_ptr + r0 * y_row, count, xtype, inv,
+                            out_x, nt, tiles, smem, stream)
+            if err != 0:
+                raise RuntimeError(f"quant_dense kernel launch failed: CUDA error {err} "
+                                   f"(n={n}, in={self.k}, out={self.m}, {x.dtype})")
+            KERNEL_LAUNCHES["quant_dense"] += 1
         return y
 
 
@@ -374,10 +443,10 @@ def _prepare(w_q, w_scale, b, act_scale: float) -> _PreparedQuantDense:
 
 
 def _quant_dense_cuda(x, w_q, w_scale, b, act_scale: float):
-    if x.dtype != torch.float32:
-        raise NotImplementedError(
-            f"the quant_dense kernel takes float32 activations, got {x.dtype}: other dtypes "
-            f"wait for ROADMAP.md queue 1, 'Quantization'")
-    if x.dim() != 2 or w_q.dim() != 2 or x.shape[1] != w_q.shape[0]:
+    _check_dtype("x", x)
+    if x.dim() < 1 or w_q.dim() != 2 or x.shape[-1] != w_q.shape[0]:
         raise ValueError(f"quant_dense: x {tuple(x.shape)} and W_q {tuple(w_q.shape)} do not chain")
+    if w_q.shape[1] == 0:  # no output column: nothing to launch
+        dtype = x.dtype if b is None or b.dtype == x.dtype else torch.float32
+        return torch.empty(x.shape[:-1] + (0,), dtype=dtype, device=x.device)
     return _prepare(w_q, w_scale, b, act_scale)(x)

@@ -46,31 +46,44 @@ def _rows(rng, n, k, a):
     return x
 
 
-def _launch_once(x, w_q, w_scale, b, a):
+def _launch_once(x, w_q, w_scale, b, a, launches=1):
     before = linear.KERNEL_LAUNCHES["quant_dense"]
     y = linear.quant_dense(x, w_q, w_scale, b, a)
-    assert linear.KERNEL_LAUNCHES["quant_dense"] == before + 1
+    assert linear.KERNEL_LAUNCHES["quant_dense"] == before + launches
     return y
 
 
+#: x's dtypes, each with the biases the kernel takes beside it: none, float32
+#: (what bundles hold) and x's own
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,m", [(1152, 1024), (1024, 10), (6, 5), (37, 12), (1000, 48), (1001, 20)])
+@pytest.mark.parametrize("k,m", [(1152, 1024), (1024, 10), (6, 5), (37, 12), (1000, 48), (1001, 20),
+                                 (1024, 100), (1024, 1000), (18432, 1024)])
 def test_quant_dense_kernel_equals_its_plain_version(card, k, m):
-    """Bit-equal at the int8 bundle's shapes and ragged ones, through both
-    load routes (TMA where out is a multiple of 16, else one bulk copy),
-    with K-chunks that are not multiples of 32 (1000, 1001: the last chunk
-    is ragged; 1001 also lands x without bulk copies) and n past one row
-    tile (130, 257), on rows holding half codes and values past the clip;
-    the launch count rises by one per call."""
+    """Bit-equal at the int8 bundle's shapes, the 100-class head and ragged
+    and staged ones, through both load routes (TMA where out is or is padded
+    to a multiple of 16, else one bulk copy), with K-chunks that are not
+    multiples of 32 (1000, 1001: the last chunk is ragged; 1001 also lands x
+    without 16-byte loads), a K walked in 9 stages a chunk (18432), and n
+    past one row tile (130, 257), on rows holding half codes and values past
+    the clip, for x in float32, bfloat16 and float16 with no bias, a float32
+    bias and a bias of x's dtype; the output has the promoted dtype and the
+    launch count rises by one per call."""
     rng = np.random.default_rng(k * 1000 + m)
     a = 0.021
     w_q, w_scale, b = _operands(rng, card, k, m)
-    assert linear.quant_dense_plan(1, k, m).route == ("tma" if m % 16 == 0 else "bulk")
+    plan = linear.quant_dense_plan(1, k, m)
+    assert plan.route == ("tma" if m % 16 == 0 or m > 64 else "bulk")
     for n in (1, 3, 8, 21, 32, 128, 130, 257):
-        x = torch.from_numpy(_rows(rng, n, k, a)).to(card)
-        for bias in (b, None):
-            y = _launch_once(x, w_q, w_scale, bias, a)
-            assert torch.equal(y, linear.quant_dense_plain(x, w_q, w_scale, bias, a)), (n, bias is None)
+        rows = torch.from_numpy(_rows(rng, n, k, a)).to(card)
+        for dtype in DTYPES:
+            x = rows.to(dtype)
+            for bias in (b, None, b.to(dtype)):
+                y = _launch_once(x, w_q, w_scale, bias, a)
+                assert y.dtype == (dtype if bias is None or bias.dtype == dtype else torch.float32)
+                assert torch.equal(y, linear.quant_dense_plain(x, w_q, w_scale, bias, a)), (n, dtype, bias is None)
 
 
 @pytest.mark.cuda
@@ -98,44 +111,88 @@ def test_quant_dense_kernel_sums_exactly_across_the_cluster(card):
 
 
 @pytest.mark.cuda
-def test_quant_dense_kernel_takes_x_at_any_alignment(card):
-    """x as a contiguous view whose storage is 4 bytes past a 16-byte
-    boundary: the kernel loads it without bulk copies, to the same bits."""
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_quant_dense_kernel_takes_x_at_any_alignment(card, dtype):
+    """x as a contiguous view whose storage is one element past a 16-byte
+    boundary: the kernel loads it without 16-byte loads, to the same bits."""
     k, m, a = 1152, 1024, 0.021
     rng = np.random.default_rng(5)
     w_q, w_scale, b = _operands(rng, card, k, m)
     for n in (1, 21, 130):
-        flat = torch.empty(n * k + 1, device=card)
+        flat = torch.empty(n * k + 1, device=card, dtype=dtype)
         x = flat[1:].view(n, k)
         x.copy_(torch.from_numpy(_rows(rng, n, k, a)))
-        assert x.is_contiguous() and x.data_ptr() % 16 == 4
+        assert x.is_contiguous() and x.data_ptr() % 16 == x.element_size()
         y = _launch_once(x, w_q, w_scale, b, a)
         assert torch.equal(y, linear.quant_dense_plain(x, w_q, w_scale, b, a))
 
 
 @pytest.mark.cuda
+def test_quant_dense_kernel_takes_x_of_any_rank_and_strides(card):
+    """x of rank 1, 3 and 4 flattens into rows (a view) and y takes x's
+    leading shape; a non-contiguous x is copied once; both bit-equal."""
+    k, m, a = 64, 10, 0.021
+    rng = np.random.default_rng(7)
+    w_q, w_scale, b = _operands(rng, card, k, m)
+    for shape in ((k,), (2, 3, k), (2, 2, 5, k)):
+        x = torch.from_numpy(_rows(rng, int(np.prod(shape[:-1])), k, a).reshape(shape)).to(card)
+        for dtype in DTYPES:
+            y = _launch_once(x.to(dtype), w_q, w_scale, b, a)
+            assert y.shape == shape[:-1] + (m,)
+            assert torch.equal(y, linear.quant_dense_plain(x.to(dtype), w_q, w_scale, b, a))
+    x = torch.from_numpy(_rows(rng, 2 * k, 21, a)).to(card).t()  # (21, 128): every other column
+    x = x[:, ::2]
+    assert not x.is_contiguous() and x.shape == (21, k)
+    y = _launch_once(x, w_q, w_scale, b, a)
+    assert torch.equal(y, linear.quant_dense_plain(x, w_q, w_scale, b, a))
+
+
+@pytest.mark.cuda
 def test_quant_dense_kernel_refuses_views_it_would_misread(card):
     """A non-contiguous W_q view, and a contiguous one off the 16-byte
-    alignment the kernel's copies need, raise and launch nothing."""
+    alignment the kernel's copies need, are copied once into the prepared
+    handle (aligned, contiguous), the caller's tensors untouched; the
+    launches read the copy, bit-equal to the plain version on the view."""
     rng = np.random.default_rng(6)
     w_q, w_scale, b = _operands(rng, card, 64, 32)
-    x = torch.zeros((2, 64), device=card)
-    before = linear.KERNEL_LAUNCHES["quant_dense"]
-    with pytest.raises(ValueError, match="contiguous"):
-        linear.quant_dense(x, w_q.t().contiguous().t(), w_scale, b, 0.1)
+    x = torch.from_numpy(_rows(rng, 2, 64, 0.1)).to(card)
     flat = torch.zeros(64 * 32 + 1, dtype=torch.int8, device=card)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        linear.quant_dense(x, flat[1:].view(64, 32), w_scale, b, 0.1)
-    assert linear.KERNEL_LAUNCHES["quant_dense"] == before
+    flat[1:] = w_q.reshape(-1)
+    for view in (w_q.t().contiguous().t(), flat[1:].view(64, 32)):
+        before = view.clone()
+        y = _launch_once(x, view, w_scale, b, 0.1)
+        assert torch.equal(y, linear.quant_dense_plain(x, view, w_scale, b, 0.1))
+        held = linear._PREPARED[id(view)]._held[0]
+        assert held.data_ptr() != view.data_ptr() and held.data_ptr() % 16 == 0 and held.is_contiguous()
+        assert torch.equal(held, view) and torch.equal(view, before)
 
 
 @pytest.mark.cuda
 def test_quant_dense_kernel_refuses_other_dtypes(card):
-    x = torch.zeros((2, 8), dtype=torch.bfloat16, device=card)
+    """float64 (which the reference, with x64 off, cannot hold) raises and
+    launches nothing; bfloat16 launches the kernel and counts."""
     w_q = torch.zeros((8, 4), dtype=torch.int8, device=card)
     w_scale = torch.ones(4, device=card)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        linear.quant_dense(x, w_q, w_scale, None, 0.1)
+    before = linear.KERNEL_LAUNCHES["quant_dense"]
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        linear.quant_dense(torch.zeros((2, 8), dtype=torch.float64, device=card), w_q, w_scale, None, 0.1)
+    assert linear.KERNEL_LAUNCHES["quant_dense"] == before
+    y = _launch_once(torch.ones((2, 8), dtype=torch.bfloat16, device=card), w_q, w_scale, None, 0.1)
+    assert y.dtype == torch.bfloat16 and not y.any()
+
+
+@pytest.mark.cuda
+def test_quant_dense_kernel_launches_per_block_of_65535_row_tiles(card):
+    """4,194,305 rows of 32 → 16: 65,537 row tiles of 64 rows, past grid y's
+    65,535, run as two launches, bit-equal to the plain version."""
+    k, m, a, n = 32, 16, 0.021, 4_194_305
+    rng = np.random.default_rng(8)
+    w_q, w_scale, b = _operands(rng, card, k, m)
+    plan = linear.quant_dense_plan(n, k, m)
+    assert plan.row_tiles == 65537 and plan.launches == 2
+    x = (torch.rand((n, k), generator=torch.Generator(device=card).manual_seed(8), device=card) * 2 - 1) * 3
+    y = _launch_once(x, w_q, w_scale, b, a, launches=2)
+    assert torch.equal(y, linear.quant_dense_plain(x, w_q, w_scale, b, a))
 
 
 # -- the training iteration as CUDA-graph replays ------------------------------------

@@ -7,7 +7,9 @@ the JAX package on the CPU.
 Tolerances:
 - ``quant_dense``: the int8 codes equal the reference's exactly, and y lies
   within 1e-6 relative (both packages take an exact integer sum and round
-  the same fp32 products; in practice y is bit-equal);
+  the same fp32 products; in practice y is bit-equal); over the op's wider
+  domain (16-bit x, an N-D x, outs of 100 and 1000, in = 18432) the port
+  equals the reference bit for bit, in dtype and shape too;
 - ``quantize_dense_params``: bit-equal;
 - calibration scales: 1e-6 relative (the amax of float32 activations whose
   summation order differs between the packages);
@@ -160,10 +162,51 @@ def _case(name):
 
 
 CASES = ["random", "half_points", "past_the_clip", "reciprocal_trap", "acc_past_2_24"]
+#: the reference op's wider domain: x's shape and out, in x's dtype, with no
+#: bias, a float32 bias (what bundles hold) or a bias of x's dtype
+DOMAIN_SHAPES = {"8x1152-100": ((8, 1152), 100), "5x1024-1000": ((5, 1024), 1000),
+                 "2x3x64-10": ((2, 3, 64), 10), "3x18432-1024": ((3, 18432), 1024)}
+DOMAIN_DTYPES = ("float32", "bfloat16", "float16")
+DOMAIN_CASES = {f"{dt}-{shape}-{bias}": (dt, shape, bias) for dt in DOMAIN_DTYPES for shape in DOMAIN_SHAPES
+                for bias in (("none", "float32") if dt == "float32" else ("none", "float32", "x"))}
 
 
-@pytest.mark.parametrize("name", CASES)
+def _domain_case(name):
+    """(x, w_q, w_scale, b, act_scale, x's dtype name) of one wider-domain
+    case: x drawn in float32 over ±1.3·127·a (past the clip) with half codes
+    in its first values, then rounded to x's dtype by each package."""
+    dt, shape, bias = DOMAIN_CASES[name]
+    x_shape, m = DOMAIN_SHAPES[shape]
+    rng = np.random.default_rng(list(DOMAIN_CASES).index(name))
+    a = 0.0213
+    x = rng.uniform(-1.3, 1.3, x_shape).astype(np.float32) * np.float32(127 * a)
+    x.reshape(-1, x_shape[-1])[:, :20] = ((np.arange(20) - 10 + 0.5) * a).astype(np.float32)
+    w_q = rng.integers(-127, 128, (x_shape[-1], m)).astype(np.int8)
+    w_scale = (rng.random(m).astype(np.float32) + 0.1) * np.float32(0.01)
+    b = None if bias == "none" else (rng.standard_normal(m).astype(np.float32), dt if bias == "x" else "float32")
+    return x, w_q, w_scale, b, a, dt
+
+
+def _both(a, dtype: str):
+    """A float32 numpy array as (jax array, torch tensor) of ``dtype``."""
+    return jnp.asarray(a).astype(jnp.dtype(dtype)), _t(a).to(getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("name", CASES + list(DOMAIN_CASES))
 def test_quant_dense_matches_jax(name):
+    if name in DOMAIN_CASES:
+        x, w_q, w_scale, b, a, dt = _domain_case(name)
+        jx, px = _both(x, dt)
+        jb, pb = (None, None) if b is None else _both(*b)
+        ref = jax_linear.quant_dense(jx, jnp.asarray(w_q), jnp.asarray(w_scale), jb, a)
+        port = pt_linear.quant_dense(px, _t(w_q), _t(w_scale), pb, a)
+        plain = pt_linear.quant_dense_plain(px, _t(w_q), _t(w_scale), pb, a)
+        assert torch.equal(port, plain)
+        want = dt if b is None or b[1] == dt else "float32"
+        assert str(ref.dtype) == want and port.dtype == getattr(torch, want)
+        assert tuple(port.shape) == tuple(ref.shape) == x.shape[:-1] + (w_q.shape[1],)
+        np.testing.assert_array_equal(port.float().numpy(), np.asarray(ref.astype(jnp.float32)))
+        return
     x, w_q, w_scale, b, a = _case(name)
     codes = pt_linear.quantize_activations(_t(x), a).numpy()
     np.testing.assert_array_equal(codes, _jax_codes(x, a))
@@ -221,66 +264,119 @@ def test_quant_dense_on_a_cpu_tensor_takes_the_plain_version_and_launches_nothin
 
 
 def test_the_kernel_wrapper_refuses_what_the_kernel_does_not_take():
-    """The checks run before anything touches CUDA, so they show here."""
+    """The checks run before anything touches CUDA, so they show here:
+    what the reference does not take raises, and what it takes (16-bit x,
+    any rank, a ragged wide output, a strided W_q) passes every check but
+    the last, which finds the operands on the host."""
     x, w_q, w_scale, b, a = (_t(v) if isinstance(v, np.ndarray) else v for v in _case("random"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'Quantization'"):
-        pt_linear._quant_dense_cuda(x.to(torch.bfloat16), w_q, w_scale, b, a)
+    for bad in (x.double(), x.to(torch.int32)):
+        with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+            pt_linear._quant_dense_cuda(bad, w_q, w_scale, b, a)
+        with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+            pt_linear.quant_dense(bad, w_q, w_scale, b, a)
     with pytest.raises(ValueError, match="do not chain"):
         pt_linear._quant_dense_cuda(x[:, :5], w_q, w_scale, b, a)
+    with pytest.raises(ValueError, match="do not chain"):
+        pt_linear._quant_dense_cuda(x[0, 0], w_q, w_scale, b, a)
     with pytest.raises(ValueError, match="int8"):
         pt_linear._quant_dense_cuda(x, w_q.float(), w_scale, b, a)
-    with pytest.raises(ValueError, match="b must be float32"):
+    with pytest.raises(ValueError, match="b must be"):
         pt_linear._quant_dense_cuda(x, w_q, w_scale, b[:3], a)
-    with pytest.raises(ValueError, match="contiguous"):
-        pt_linear._quant_dense_cuda(x, w_q.t().contiguous().t(), w_scale, b, a)
+    with pytest.raises(ValueError, match="b must be float32"):
+        pt_linear._quant_dense_cuda(x, w_q, w_scale, b.double(), a)
+    wide = torch.zeros((37, 100), dtype=torch.int8)
+    taken = [(x.to(torch.bfloat16), w_q, w_scale, b), (x.to(torch.float16), w_q, w_scale, None),
+             (x.reshape(3, 3, 37), w_q, w_scale, b), (x.t().contiguous().t(), w_q, w_scale, b),
+             (x, w_q.t().contiguous().t(), w_scale, b.to(torch.bfloat16)),
+             (x, wide, torch.ones(100), torch.zeros(100))]
+    for args in taken:
+        with pytest.raises(ValueError, match="x's device"):
+            pt_linear._quant_dense_cuda(*args, a)
 
 
 def test_the_kernel_wrapper_refuses_weights_it_would_misread_before_touching_cuda():
-    """A W_q view off the 16-byte alignment the kernel's copies need, and
-    weights on the host under a CUDA x, raise before any build or launch."""
+    """A W_q view off the 16-byte alignment the kernel's copies need, or not
+    contiguous, is copied once (aligned, contiguous, equal), and the
+    caller's tensor is left as it was; weights on the host under a CUDA x
+    raise before any build or launch."""
     x, w_q, w_scale, b, a = (_t(v) if isinstance(v, np.ndarray) else v for v in _case("random"))
     k, m = w_q.shape
     flat = torch.zeros(k * m + 1, dtype=torch.int8)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        pt_linear._quant_dense_cuda(x, flat[1:].view(k, m), w_scale, b, a)
+    flat[1:] = w_q.reshape(-1)
+    for view in (flat[1:].view(k, m), w_q.t().contiguous().t()):
+        before = view.clone()
+        w, scale, bias, plan = pt_linear.quant_dense_operands(view, w_scale, b)
+        assert w.data_ptr() != view.data_ptr() and w.data_ptr() % 16 == 0 and w.is_contiguous()
+        assert torch.equal(w, view) and torch.equal(view, before) and plan.pad_bytes == 0
+        assert scale is w_scale and bias is b
+    w, scale, bias, _ = pt_linear.quant_dense_operands(w_q, w_scale.double(), b)
+    assert w is w_q and scale.dtype == torch.float32 and torch.equal(scale, w_scale.double().float())
     with pytest.raises(ValueError, match="x's device"):
         pt_linear._quant_dense_cuda(x, w_q, w_scale, b, a)
 
 
-@pytest.mark.parametrize("n", [1, 3, 8, 21, 32, 128, 130])
-@pytest.mark.parametrize("k,m", [(1152, 1024), (1024, 10), (6, 5), (37, 12)])
+@pytest.mark.parametrize("n", [1, 3, 8, 21, 32, 128, 130, 4_194_305])
+@pytest.mark.parametrize("k,m", [(1152, 1024), (1024, 10), (6, 5), (37, 12), (1024, 100), (1024, 1000),
+                                 (64, 100), (18432, 1024), (12800, 1024), (2000, 37), (32, 16)])
 def test_the_kernel_launch_plan_covers_every_k_row_and_column_once(k, m, n):
     """The plan the wrapper passes the kernel (``quant_dense_plan``), at the
-    int8 bundle's two quantized layers and two ragged shapes: the K-chunks
-    tile K (each a multiple of 32 long, none empty, so every k is summed
-    exactly once), the row tiles and strips cover n and N, clusters stay
-    within the portable 8, TMA is the route exactly where a W_q row is a
-    multiple of 16 bytes, and a CTA's shared memory fits the H100's 227 KB."""
+    int8 bundle's two quantized layers, the 100-class head, ragged and
+    staged shapes: the K-chunks tile K (each a multiple of 32 long, none
+    empty) and each chunk's stages tile the chunk (a multiple of 32, at
+    most 256 rows), so every k is summed exactly once; the row tiles and
+    strips cover n and N, clusters stay within the portable 8, TMA is the
+    route exactly where W_q's rows are (or are padded to) a multiple of 16
+    bytes, the padded copy's extra bytes are stated, one stage of a CTA fits
+    the H100's 227 KB of shared memory, and the launches' row blocks cover n
+    once within grid y's 65,535 row tiles."""
     plan = pt_linear.quant_dense_plan(n, k, m)
     chunks = [(r * plan.k_chunk, min(k, (r + 1) * plan.k_chunk)) for r in range(plan.cluster)]
     covered = np.zeros(k, np.int64)
     for start, stop in chunks:
         assert start < stop <= start + plan.k_chunk
-        covered[start:stop] += 1
+        for s in range(-(-(stop - start) // plan.k_stage)):
+            covered[start + s * plan.k_stage:min(stop, start + (s + 1) * plan.k_stage)] += 1
     assert np.all(covered == 1)
     assert plan.k_chunk % 32 == 0 and chunks[-1][1] == k
+    assert plan.k_stage % 32 == 0 and plan.k_stage <= min(256, plan.k_chunk)
+    assert (plan.stages - 1) * plan.k_stage < plan.k_chunk <= plan.stages * plan.k_stage
     assert 1 <= plan.cluster <= 8
-    assert plan.route == ("tma" if m % 16 == 0 else "bulk")
+    assert plan.route == ("tma" if m % 16 == 0 or m > 64 else "bulk")
     if plan.route == "tma":
-        assert plan.boxes * plan.box_k >= plan.k_chunk and plan.box_k <= 256
+        assert plan.width == -(-m // 16) * 16 and plan.width % 16 == 0
+        assert plan.strip <= plan.width
     else:
-        assert plan.strips == 1
+        assert plan.strips == 1 and plan.width == m
+    assert plan.pad_bytes == k * (plan.width - m)
     assert plan.strip in (16, 32, 64) and (plan.strips - 1) * plan.strip < m <= plan.strips * plan.strip
     assert (plan.row_tiles - 1) * 8 * plan.nt < n <= plan.row_tiles * 8 * plan.nt
     assert plan.smem_bytes <= 227 * 1024
     assert plan.ctas == plan.strips * plan.cluster * plan.row_tiles
+    blocks = pt_linear.quant_dense_row_blocks(n, plan.nt)
+    assert len(blocks) == plan.launches == -(-plan.row_tiles // 65535)
+    assert [r0 for r0, _, _ in blocks] == list(np.cumsum([0] + [c for _, c, _ in blocks[:-1]]))
+    assert sum(c for _, c, _ in blocks) == n and sum(t for _, _, t in blocks) == plan.row_tiles
+    assert all(1 <= t <= 65535 and (t - 1) * 8 * plan.nt < c <= t * 8 * plan.nt for _, c, t in blocks)
     if (k, m) == (1152, 1024):
         assert plan.ctas >= 128
 
 
 def test_the_kernel_launch_plan_refuses_a_ragged_wide_output():
-    with pytest.raises(ValueError, match="Quantization"):
-        pt_linear.quant_dense_plan(1, 64, 100)
+    """out = 100 (neither a multiple of 16 nor at most 64) is planned, not
+    refused: W_q is copied once into 112 zero-padded columns, 12 × in bytes
+    more than W_q, so the TMA route's 16-byte row stride holds; the kernel
+    stores only the true 100 columns, so w_scale and b are read as they
+    are. Only a shape with nothing in it is refused."""
+    w_q = _t(np.random.default_rng(9).integers(-127, 128, (1024, 100)).astype(np.int8))
+    w_scale, b = torch.ones(100), torch.zeros(100)
+    w, scale, bias, plan = pt_linear.quant_dense_operands(w_q, w_scale, b)
+    assert (plan.route, plan.width, plan.pad_bytes, plan.strips) == ("tma", 112, 1024 * 12, 2)
+    assert w.shape == (1024, 112) and w.data_ptr() % 16 == 0
+    assert torch.equal(w[:, :100], w_q) and not w[:, 100:].any()
+    assert scale is w_scale and bias is b
+    for shape in ((0, 64, 100), (1, 0, 100), (1, 64, 0)):
+        with pytest.raises(ValueError, match="must be positive"):
+            pt_linear.quant_dense_plan(*shape)
 
 
 def test_the_kernel_builds_from_the_repo_sources_into_an_ignored_directory(monkeypatch):
@@ -476,6 +572,44 @@ def test_an_int8_bundle_serves_in_both_engines_alike(tmp_path, builder):
     leaves = port._params["classifier"]["feat_1"]
     assert leaves["W_q"].dtype == torch.int8 and leaves["w_scale"].dtype == torch.float32
     _serve_both(port, ref, dst)
+
+
+def test_a_100_class_int8_classifier_serves_in_both_engines_alike(tmp_path):
+    """The MNIST transfer classifier at full width with a 100-class head
+    (``num_classes`` is an experiment flag), from one JAX checkpoint: both
+    builders quantize it alike, its head ``dis_output_layer_7`` is 1024 →
+    100 (the kernel's padded route on the card), and its int8 bundle serves
+    ``classify`` and ``features`` in both engines alike."""
+    cfg = jax_models.DcganConfig(num_classes=100)
+    jax_dis = jax_models.build_discriminator(cfg)
+    jax_cv, _ = jax_models.build_transfer_classifier(jax_dis, jax_dis.init(), cfg)
+    pt_cv = PtGraph.from_dict(json.loads(json.dumps(jax_cv.to_dict())))
+    tree = _random_tree(pt_cv.param_shapes(), 100)
+    src = str(tmp_path / "fp32")
+    os.makedirs(src)
+    jax_ser.write_model(os.path.join(src, "cv.zip"), jax_cv, jax.tree_util.tree_map(jnp.asarray, tree),
+                        save_updater=False)
+    with open(os.path.join(src, "serving.json"), "w") as fh:
+        json.dump({"format_version": 1, "classifier": "cv.zip", "feature_vertex": "dis_dense_layer_6",
+                   "num_classes": 100, "generation": 0, "step": 0}, fh)
+    rows = np.random.default_rng(3).random((32, 784), dtype=np.float32)
+    dst = str(tmp_path / "pt")
+    port_manifest = build_int8_variant(src, dst, calibration_rows=rows, device="cpu")
+    jax_manifest = jax_build_int8(src, str(tmp_path / "jax"), calibration_rows=rows)
+    for name, scale in jax_manifest["quant"]["calibration"]["activation_scales"].items():
+        assert port_manifest["quant"]["calibration"]["activation_scales"][name] == \
+            pytest.approx(scale, rel=SCALE_REL)
+    _, pp, _, _ = pt_ser.read_model(os.path.join(dst, "cv.zip"), device="cpu")
+    _, jp, _, _ = jax_ser.read_model(str(tmp_path / "jax" / "cv.zip"), load_updater=False)
+    assert tuple(pp["dis_output_layer_7"]["W_q"].shape) == (1024, 100)
+    for layer in ("dis_dense_layer_6", "dis_output_layer_7"):
+        for leaf in ("W_q", "w_scale", "b"):
+            np.testing.assert_array_equal(pp[layer][leaf].numpy(), np.asarray(jp[layer][leaf]))
+    port = ServingEngine.from_bundle(dst, buckets=(8,), device="cpu")
+    ref = JaxEngine.from_bundle(dst, buckets=(8,))
+    assert set(port.kinds) == {"classify", "features"} and port.input_width("classify") == 784
+    _serve_both(port, ref, dst)
+    assert port.run("classify", rows[:3]).shape == (3, 100)
 
 
 def test_both_builders_write_the_same_int8_bundle(tmp_path):
